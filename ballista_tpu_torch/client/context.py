@@ -1,0 +1,335 @@
+"""Session context + DataFrame front end.
+
+The reference's client surface (ballista/client/src/extension.rs) with SQL
+and DataFrame entry points, in its local mode only: plan and execute in
+this process (DataFusion-alone analog). The standalone and remote modes,
+prepared statements and continuous queries need the scheduler, executor
+daemon, serving tier and Flight, which this package does not carry yet.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as _fut
+from typing import Any, Optional
+
+import pyarrow as pa
+
+from ballista_tpu_torch.config import BallistaConfig, EXECUTOR_ENGINE
+from ballista_tpu_torch.errors import PlanningError
+from ballista_tpu_torch.ids import SessionId, new_session_id
+from ballista_tpu_torch.plan.logical import Explain, LogicalPlan
+from ballista_tpu_torch.plan.physical import ExecutionPlan, TaskContext
+from ballista_tpu_torch.plan.provider import Catalog, MemoryTable, ParquetTable, TableProvider
+from ballista_tpu_torch.sql.ast import (
+    CreateExternalTable,
+    DropTable,
+    ShowColumns,
+    ExplainStmt,
+    SelectStmt,
+    SetVariable,
+    ShowTables,
+)
+from ballista_tpu_torch.sql.optimizer import optimize
+from ballista_tpu_torch.sql.parser import parse_sql
+from ballista_tpu_torch.sql.planner import SqlPlanner
+
+
+class SessionContext:
+    def __init__(self, config: BallistaConfig | None = None):
+        self.config = config or BallistaConfig()
+        self.mode = "local"
+        self.catalog = Catalog()
+        self.session_id: SessionId = new_session_id()
+
+    # -- registration -------------------------------------------------------
+
+    def register_table(self, name: str, provider: TableProvider) -> None:
+        self.catalog.register(name, provider)
+        if isinstance(provider, ParquetTable):
+            # ship the registration with the session so remote planning sees it
+            self.config.set(f"ballista.catalog.table.{name.lower()}", provider.path)
+
+    def _has_memory_tables(self) -> bool:
+        from ballista_tpu_torch.plan.provider import MemoryTable
+
+        return any(isinstance(p, MemoryTable) for p in self.catalog.tables.values())
+
+    def register_udf(self, name: str, fn, return_type) -> None:
+        """Register a scalar UDF for this session (BallistaFunctionRegistry
+        analog). Local execution resolves it immediately; for remote
+        clusters the defining module is recorded in the session config and
+        imported by executors (functions ship by reference, like the
+        reference's code-registered function sets)."""
+        from ballista_tpu_torch import udf
+
+        u = udf.register_udf(name, fn, return_type)
+        if u.module:
+            existing = self.config.get(udf.UDF_MODULES) or ""
+            mods = [m for m in existing.split(",") if m]
+            if u.module not in mods:
+                mods.append(u.module)
+                self.config.set(udf.UDF_MODULES, ",".join(mods))
+
+    def register_parquet(self, name: str, path: str) -> None:
+        self.catalog.register(name, ParquetTable(path))
+        # ship the registration with the session so remote planning sees it
+        self.config.set(f"ballista.catalog.table.{name.lower()}", path)
+
+    def register_record_batches(self, name: str, batches: list[pa.RecordBatch]) -> None:
+        self.catalog.register(name, MemoryTable(batches))
+
+    def register_arrow_table(self, name: str, table: pa.Table, partitions: int = 1) -> None:
+        self.catalog.register(name, MemoryTable.from_table(table, partitions))
+
+    def deregister_table(self, name: str) -> None:
+        self.catalog.deregister(name)
+
+    # -- append ingestion ----------------------------------------------------
+
+    def append(self, table: str, data) -> dict:
+        """Append rows to a registered table without rewriting its files.
+
+        Bumps the table's version: cached results over the table either
+        maintain incrementally from the retained delta or recompute
+        (docs/streaming.md). `data` is a pa.Table, RecordBatch, or list of
+        batches; columns match the table schema by name and are cast to its
+        types. Returns {"table", "version", "rows"}.
+        """
+        name = table.lower()
+        provider = self.catalog.get(name)
+        schema = provider.arrow_schema() if provider is not None else None
+        batches = conform_append_batches(data, schema)
+        rows = sum(b.num_rows for b in batches)
+        # local mode: overlay the registered provider in place; the planner
+        # unions the base scan with the overlay (AppendedTable)
+        if provider is None:
+            raise PlanningError(f"table not found: {table}")
+        from ballista_tpu_torch.plan.provider import AppendedTable
+
+        if not isinstance(provider, AppendedTable):
+            provider = AppendedTable(provider)
+            self.catalog.register(name, provider)
+        version = provider.append(batches)
+        return {"table": name, "version": version, "rows": rows}
+
+    # -- SQL ---------------------------------------------------------------
+
+    def sql(self, query: str) -> "DataFrame":
+        stmt = parse_sql(query)
+        if isinstance(stmt, CreateExternalTable):
+            self.register_parquet(stmt.name, stmt.location)
+            return DataFrame._empty(self, f"created table {stmt.name}")
+        if isinstance(stmt, DropTable):
+            self.deregister_table(stmt.name)
+            return DataFrame._empty(self, f"dropped table {stmt.name}")
+        if isinstance(stmt, ShowColumns):
+            provider = self.catalog.get(stmt.table)
+            if provider is None:
+                raise PlanningError(f"table not found: {stmt.table}")
+            from ballista_tpu_torch.plan.logical import TableScan
+            from ballista_tpu_torch.plan.provider import MemoryTable as MT
+
+            sch = provider.df_schema()
+            tbl = pa.table({
+                "column_name": pa.array([f.name for f in sch]),
+                "data_type": pa.array([str(f.dtype) for f in sch]),
+                "is_nullable": pa.array(["YES" if f.nullable else "NO" for f in sch]),
+            })
+            return DataFrame(self, TableScan("columns", MT.from_table(tbl)))
+        if isinstance(stmt, ShowTables):
+            tbl = pa.table({"table_name": pa.array(self.catalog.names())})
+            from ballista_tpu_torch.plan.logical import TableScan
+            from ballista_tpu_torch.plan.provider import MemoryTable as MT
+
+            return DataFrame(self, TableScan("tables", MT.from_table(tbl)))
+        if isinstance(stmt, SetVariable):
+            self.config.set(stmt.key, stmt.value)
+            return DataFrame._empty(self, f"set {stmt.key}")
+        if isinstance(stmt, ExplainStmt):
+            inner = SqlPlanner(self.catalog).plan_query(stmt.inner)
+            return DataFrame(self, Explain(inner, stmt.analyze, stmt.verbose))
+        if isinstance(stmt, SelectStmt):
+            plan = SqlPlanner(self.catalog).plan_query(stmt)
+            return DataFrame(self, plan, sql_text=query)
+        raise PlanningError(f"unsupported statement {type(stmt).__name__}")
+
+    def table(self, name: str) -> "DataFrame":
+        from ballista_tpu_torch.plan.logical import TableScan
+
+        provider = self.catalog.get(name)
+        if provider is None:
+            raise PlanningError(f"table not found: {name}")
+        return DataFrame(self, TableScan(name, provider))
+
+    # -- planning / execution ----------------------------------------------
+
+    def optimize(self, plan: LogicalPlan) -> LogicalPlan:
+        return optimize(plan)
+
+    def create_physical_plan(self, plan: LogicalPlan) -> ExecutionPlan:
+        from ballista_tpu_torch.engine.physical_planner import PhysicalPlanner
+
+        optimized = optimize(plan)
+        return PhysicalPlanner(self.config).plan(optimized)
+
+    def execute_collect(self, physical: ExecutionPlan) -> pa.Table:
+        engine_name = str(self.config.get(EXECUTOR_ENGINE))
+        if engine_name == "tpu":
+            from ballista_tpu_torch.engine.cuda_engine import maybe_compile_tpu
+
+            physical = maybe_compile_tpu(physical, self.config)
+        ctx = TaskContext(self.config)
+        n = physical.output_partition_count()
+        batches: list[pa.RecordBatch] = []
+        if n == 1:
+            batches.extend(physical.execute(0, ctx))
+        else:
+            with _fut.ThreadPoolExecutor(max_workers=min(n, 16)) as pool:
+                futs = [pool.submit(lambda p=p: list(physical.execute(p, ctx))) for p in range(n)]
+                for f in futs:
+                    batches.extend(f.result())
+        batches = [b for b in batches if b.num_rows]
+        schema = physical.schema()
+        if not batches:
+            return pa.table({f.name: pa.array([], f.type) for f in schema}, schema=schema)
+        return pa.Table.from_batches(batches, schema=schema)
+
+
+class DataFrame:
+    """Lazy logical-plan wrapper (reference: DataFusion DataFrame surface
+    re-exported through ballista's prelude)."""
+
+    def __init__(self, ctx: SessionContext, plan: LogicalPlan, sql_text: str | None = None):
+        self.ctx = ctx
+        self.plan = plan
+        self.sql_text = sql_text
+
+    @classmethod
+    def _empty(cls, ctx: SessionContext, note: str) -> "DataFrame":
+        tbl = pa.table({"result": pa.array([note])})
+        from ballista_tpu_torch.plan.logical import TableScan
+        from ballista_tpu_torch.plan.provider import MemoryTable as MT
+
+        return cls(ctx, TableScan("result", MT.from_table(tbl)))
+
+    # -- transformations ----------------------------------------------------
+
+    def select(self, *exprs) -> "DataFrame":
+        from ballista_tpu_torch.plan.expressions import col as _col
+        from ballista_tpu_torch.plan.logical import Projection
+
+        es = [(_col(e) if isinstance(e, str) else e) for e in exprs]
+        return DataFrame(self.ctx, Projection(self.plan, es))
+
+    def filter(self, predicate) -> "DataFrame":
+        from ballista_tpu_torch.plan.logical import Filter as F
+
+        return DataFrame(self.ctx, F(self.plan, predicate))
+
+    def aggregate(self, group_exprs, agg_exprs) -> "DataFrame":
+        from ballista_tpu_torch.plan.logical import Aggregate as A
+
+        return DataFrame(self.ctx, A(self.plan, list(group_exprs), list(agg_exprs)))
+
+    def sort(self, *keys) -> "DataFrame":
+        from ballista_tpu_torch.plan.logical import Sort as S
+
+        return DataFrame(self.ctx, S(self.plan, list(keys)))
+
+    def limit(self, fetch: int, skip: int = 0) -> "DataFrame":
+        from ballista_tpu_torch.plan.logical import Limit as L
+
+        return DataFrame(self.ctx, L(self.plan, fetch, skip))
+
+    def join(self, other: "DataFrame", on: list, how: str = "inner") -> "DataFrame":
+        from ballista_tpu_torch.plan.expressions import col as _col
+        from ballista_tpu_torch.plan.logical import Join as J
+
+        pairs = []
+        for item in on:
+            if isinstance(item, str):
+                pairs.append((_col(item), _col(item)))
+            else:
+                l, r = item
+                pairs.append((_col(l) if isinstance(l, str) else l, _col(r) if isinstance(r, str) else r))
+        return DataFrame(self.ctx, J(self.plan, other.plan, pairs, how))
+
+    # -- actions ------------------------------------------------------------
+
+    def logical_plan(self) -> LogicalPlan:
+        return self.plan
+
+    def optimized_plan(self) -> LogicalPlan:
+        return self.ctx.optimize(self.plan)
+
+    def explain_text(self) -> str:
+        logical = self.ctx.optimize(self.plan)
+        physical = self.ctx.create_physical_plan(self.plan)
+        return f"logical plan:\n{logical.display()}\nphysical plan:\n{physical.display()}"
+
+    def collect(self) -> pa.Table:
+        if isinstance(self.plan, Explain):
+            return self._collect_explain()
+        physical = self.ctx.create_physical_plan(self.plan)
+        return self.ctx.execute_collect(physical)
+
+    def _collect_explain(self) -> pa.Table:
+        assert isinstance(self.plan, Explain)
+        logical = self.ctx.optimize(self.plan.input)
+        physical = self.ctx.create_physical_plan(self.plan.input)
+        types = ["logical_plan", "physical_plan"]
+        plans = [logical.display(), physical.display()]
+        if self.plan.analyze:
+            # compile FIRST so the analyzed tree is the executed tree —
+            # execute_collect compiles a local copy, which would leave the
+            # displayed plan with empty metrics (and hide the TPU stages)
+            if str(self.ctx.config.get(EXECUTOR_ENGINE)) == "tpu":
+                from ballista_tpu_torch.engine.cuda_engine import maybe_compile_tpu
+
+                physical = maybe_compile_tpu(physical, self.ctx.config)
+            self.ctx.execute_collect(physical)
+            from ballista_tpu_torch.plan.physical import collect_metrics
+
+            lines = []
+            for depth, name, m in collect_metrics(physical):
+                lines.append(f"{'  ' * depth}{name}: rows={m['output_rows']} elapsed_ms={m['elapsed_ns'] / 1e6:.2f}")
+            types.append("analyzed_plan")
+            plans.append("\n".join(lines))
+        return pa.table({"plan_type": pa.array(types), "plan": pa.array(plans)})
+
+    def to_pandas(self):
+        return self.collect().to_pandas()
+
+    def count(self) -> int:
+        return self.collect().num_rows
+
+    def show(self, n: int = 20) -> None:
+        print(self.collect().slice(0, n).to_pandas().to_string())
+
+
+def conform_append_batches(data, schema: pa.Schema | None) -> list[pa.RecordBatch]:
+    """Normalize append input (Table / RecordBatch / list of batches) to
+    record batches conforming to the table schema: columns match by NAME
+    (not position) and cast to the declared types, so callers can append a
+    column subset order-independently. Missing columns are an explicit
+    error rather than a silent null fill — appends must be self-complete.
+    With no schema (table unknown client-side) the rows ship as-is and the
+    server-side scan alignment does the work."""
+    if isinstance(data, pa.RecordBatch):
+        tbl = pa.Table.from_batches([data])
+    elif isinstance(data, pa.Table):
+        tbl = data
+    else:
+        batches = list(data)
+        if not batches:
+            raise PlanningError("append needs at least one row batch")
+        tbl = pa.Table.from_batches(batches)
+    if schema is None:
+        return tbl.combine_chunks().to_batches()
+    cols = []
+    for f in schema:
+        idx = tbl.schema.get_field_index(f.name)
+        if idx < 0:
+            raise PlanningError(f"append is missing column {f.name!r}")
+        cols.append(tbl.column(idx).cast(f.type))
+    return pa.Table.from_arrays(cols, schema=schema).combine_chunks().to_batches()
