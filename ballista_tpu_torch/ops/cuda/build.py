@@ -23,7 +23,7 @@ from ballista_tpu_torch.ops.cuda import runtime
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("masked_group_reduce",)
+SOURCES = ("masked_group_reduce", "hash_probe", "dict_filter")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -196,19 +196,34 @@ def _lexsort(keys: list) -> torch.Tensor:
 
 def _segscan(values: torch.Tensor, boundary: torch.Tensor, func: str) -> torch.Tensor:
     """Inclusive segmented sum/min/max scan with resets at boundary rows
-    (Hillis-Steele, log2(n) passes; row 0 must be a boundary). Fixed
-    order, so reruns are bitwise identical."""
+    (row 0 must be a boundary). The combine is the segmented-scan monoid,
+    applied in the association order of the reference's
+    `jax.lax.associative_scan` (pairwise reduce, recurse, fill the even
+    positions), so float sums agree with the JAX package bit for bit and
+    reruns are bitwise identical."""
     op = {"min": torch.minimum, "max": torch.maximum, "sum": torch.add}[func]
-    v, f = values, boundary
-    n = v.shape[0]
-    s = 1
-    while s < n:
-        nv = torch.where(f[s:], v[s:], op(v[:-s], v[s:]))
-        nf = f[s:] | f[:-s]
-        v = torch.cat([v[:s], nv])
-        f = torch.cat([f[:s], nf])
-        s *= 2
-    return v
+
+    def combine(av, af, bv, bf):
+        return torch.where(bf, bv, op(av, bv)), af | bf
+
+    def scan(v, f):
+        n = v.shape[0]
+        if n < 2:
+            return v, f
+        odd_v, odd_f = scan(*combine(v[0:n - 1:2], f[0:n - 1:2], v[1::2], f[1::2]))
+        if n % 2 == 0:
+            ev, ef = combine(odd_v[:-1], odd_f[:-1], v[2::2], f[2::2])
+        else:
+            ev, ef = combine(odd_v, odd_f, v[2::2], f[2::2])
+        ev = torch.cat([v[:1], ev])
+        ef = torch.cat([f[:1], ef])
+        out_v = torch.empty_like(v)
+        out_f = torch.empty_like(f)
+        out_v[0::2], out_v[1::2] = ev, odd_v
+        out_f[0::2], out_f[1::2] = ef, odd_f
+        return out_v, out_f
+
+    return scan(values, boundary)[0]
 
 
 def _first_of_run(x: torch.Tensor) -> torch.Tensor:

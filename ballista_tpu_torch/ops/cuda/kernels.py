@@ -127,6 +127,10 @@ class Lowering:
         # LUTs as arguments, only their contents change across tables.
         self.lut_builders: list[tuple[int, Any]] = []
         self.slots: list[int] = list(range(len(kinds)))  # field → source slot
+        # fused_pallas stages flip this on: `=`, `<>` and LIKE over
+        # dictionary codes run through the hand-written dict_filter kernel
+        # instead of a plain gather (IN stays a gather, as in the reference)
+        self.pallas_dict_filter = False
         # env indirection (set by the stage compiler): field index → lowered
         # fn, so projections rebind what a Column reference means
         self.env_fns: list | None = None
@@ -212,15 +216,28 @@ def _string_expr_fn(e: Expr, ctx: "Lowering"):
     return None
 
 
-def _lut_pred(ctx: Lowering, col: Column, i: int, builder, neg: bool) -> LoweredFn:
+def _lut_pred(ctx: Lowering, col: Column, i: int, builder, neg: bool,
+              kernel: bool = False) -> LoweredFn:
     """A boolean dictionary LUT gathered by code: the device form of every
-    string predicate (=, <>, IN, LIKE)."""
+    string predicate (=, <>, IN, LIKE). With `kernel` (=, <> and LIKE) and
+    the Lowering's `pallas_dict_filter` flag, [P, N] codes go through the
+    `dict_filter` kernel, whose mask is the valid plane under = and LIKE
+    and all-true under the negated forms (the valid plane handles nulls
+    downstream either way)."""
     src = lower_expr(col, ctx)
     li = ctx.add_lut(ctx.slots[i], builder)
 
     def run(cols, luts):
         v = src(cols, luts)
-        out = take(luts[li], v.arr)
+        lut = luts[li]
+        if kernel and ctx.pallas_dict_filter and v.arr.dim() == 2:
+            from ballista_tpu_torch.ops.cuda.cuda_kernels import dict_filter
+
+            mask = (v.valid if (v.valid is not None and not neg)
+                    else torch.ones(v.arr.shape, dtype=torch.bool, device=v.arr.device))
+            out = dict_filter(v.arr, lut, mask)
+        else:
+            out = take(lut, v.arr)
         return DevVal("bool", ~out if neg else out, valid=v.valid)
 
     return run
@@ -278,7 +295,7 @@ def lower_expr(e: Expr, ctx: Lowering) -> LoweredFn:
                             ctx, col, i,
                             lambda dic, val=val, sfn=sfn: np.array(
                                 [sfn(x) == val for x in dic], dtype=bool),
-                            e.op == "<>")
+                            e.op == "<>", kernel=True)
         lf = lower_expr(e.left, ctx)
         rf = lower_expr(e.right, ctx)
         op = e.op
@@ -382,7 +399,7 @@ def lower_expr(e: Expr, ctx: Lowering) -> LoweredFn:
             ctx, e.expr, i,
             lambda dic, pat=pat: np.array(
                 [fnmatch.fnmatchcase(x, pat) for x in dic], dtype=bool),
-            e.negated)
+            e.negated, kernel=True)
 
     if isinstance(e, Case):
         branch_fns = [(lower_expr(w, ctx), lower_expr(t, ctx)) for w, t in e.branches]

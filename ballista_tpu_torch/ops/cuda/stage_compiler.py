@@ -3,17 +3,24 @@
 Counterpart of the JAX package's ops/tpu/stage_compiler.py, cut to the
 slice the port carries so far. TpuStageExec (the name kept, like every
 config key) replaces a `HashAggregateExec(partial)` whose input chain is
-Filter*/Projection*/CoalesceBatches* over a scan, with filterless semi and
-anti joins on the probe chain. The execution model is the reference's:
+Filter*/Projection*/CoalesceBatches*/HashJoin* over a scan. The execution
+model is the reference's:
 
 - the WHOLE table (all scan partitions) is encoded once with UNIFIED
   dictionaries and cached on the card as [P, N] stacked columns
   (DeviceTableCache; LRU against ballista.tpu.max.device.bytes);
-- scan filters, projections and semi/anti membership masks are lowered
-  into closures that process all P partitions in one pass; the grouped
-  reduction runs either as exact torch reductions (aggregate_lane) or,
-  under `fused_pallas`, through the hand-written `masked_group_reduce`
-  kernel (pallas_lane), behind the reference's `pallas_ok` gate;
+- each join's build side is collected on the host, encoded into a direct
+  key→row table (expansion joins: lo/cnt tables with key-sorted payloads)
+  and cached on the card (_BUILD_CACHE);
+- scan filters, projections, join probes with their payload gathers
+  (inner, right outer, semi/anti with or without a residual filter,
+  aggregate-through-join) are lowered into closures that process all P
+  partitions in one pass, once per expansion lane; the grouped reduction
+  runs either as exact torch reductions (aggregate_lane) or, under
+  `fused_pallas`, through the hand-written `masked_group_reduce` kernel
+  (pallas_lane), behind the reference's `pallas_ok` gate. Under
+  `fused_pallas` small unique join tables are probed by the `hash_probe`
+  kernel and string predicates run through `dict_filter`;
 - per query the host round trips are O(1): upload LUTs (cached), one
   pass, one batched fetch.
 
@@ -21,18 +28,17 @@ Output batches match the partial aggregate's schema exactly, so the
 downstream repartition/final-aggregate machinery is engine-agnostic.
 
 Any other shape raises `Unsupported` and the subtree re-runs on the CPU
-engine, counted in `fallback_count`: inner and outer joins with payload
-gathers, aggregate-through-join, semi/anti joins with a residual filter,
-sorted-mode builds, the sorted large-domain aggregation, the staged mode,
-the mesh, the daemon, and the spill and grace rungs. Only `Unsupported`
-falls back: a kernel build or launch error, or a missing card, raises out
-of the query.
+engine, counted in `fallback_count`: sorted-mode builds, the sorted
+large-domain aggregation, the staged mode, the mesh, the daemon, and the
+spill and grace rungs. Only `Unsupported` falls back: a kernel build or
+launch error, or a missing card, raises out of the query.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as _fut
 import contextlib
+import itertools
 import logging
 import os
 import threading
@@ -102,8 +108,10 @@ class RunStats:
     last few per-stage records.
 
     Keys the port fills: fill_s (whole device fill), encode_s (host encode
-    wall), upload_s (host→card copies), device_bytes, exec_s (dispatch +
-    fetch + decode), fused_kernel_s (device seconds of the stage pass),
+    wall), upload_s (host→card copies), device_bytes, build_s (join build
+    sides: host collect + encode + upload, or the build-cache hits), exec_s
+    (dispatch + fetch + decode), fused_kernel_s (device seconds of the
+    stage pass),
     fusion_mode (fused_xla | fused_pallas — the mode that actually ran),
     fusion_reason (the cost model's stated rationale), fused_spans
     (operator spans run in the stage pass), hbm_budget_bytes, hbm_plan
@@ -166,31 +174,75 @@ RUN_STATS = RunStats()
 DIRECT_TABLE_MAX = 1 << 27  # 128M entries × int32 = 512 MB ceiling
 
 
-class BuildTable:
-    """A filterless semi/anti join's build side, keys only, for device
-    membership probing (the 'direct' mode of the reference): a dense
-    key→row int32 table [T] (-1 absent) — one gather per probe — or, when
-    build keys repeat, lo/cnt tables [T] whose cnt > 0 marks membership.
-    No payload columns: a membership probe never gathers build values."""
+MAX_JOIN_DUP = 16  # expansion joins unroll this many match lanes at most
 
-    def __init__(self, keys, n_rows, dup=1, cnt=None):
-        self.mode = "direct"
+
+class BuildTable:
+    """A join's build side, encoded for device probing (the reference's
+    'direct' mode; its 'sorted' mode, for key ranges past
+    DIRECT_TABLE_MAX, is not ported and raises Unsupported at build time).
+
+    Keys are dense-enough ints → a [T] int32 lookup table (key → build row,
+    -1 absent): ONE gather per probe. Non-unique build keys (dup > 1,
+    "expansion joins"): the payloads are laid out key-sorted and the lookup
+    yields (first row, count) from the lo/cnt tables; the probe pipeline
+    unrolls dup match lanes (d < count masks) so each probe row can emit up
+    to dup joined rows into the agg."""
+
+    def __init__(self, mode, keys, payloads, kinds, scales, dicts, n_rows,
+                 dup=1, cnt=None, pay_valids=None):
+        self.mode = mode  # direct
         self.keys = keys  # int32 [T] row (dup == 1) or lo (dup > 1) table
-        self.cnt = cnt  # int32 [T] per-key match count, dup > 1 only
+        self.payloads = payloads  # per column, padded to B (unique: original order)
+        self.kinds = kinds
+        self.scales = scales
+        self.dicts = dicts
         self.n_rows = n_rows
-        self.dup = dup
+        self.dup = dup  # max duplicates per key (1 = unique fast paths)
+        self.cnt = cnt  # int32 [T] per-key match count, dup > 1 only
         self.shifts: list[int] = []  # multi-key combine shifts (per extra key)
-        self.kinds: list = []
-        self.dicts: list = []
+        # per payload column: bool [B] validity plane or None; padding slots
+        # are invalid, so an outer join's unmatched gathers decode as NULL
+        self.pay_valids = pay_valids if pay_valids is not None else [None] * len(payloads)
+        # build-schema field index → position in payloads (None = column was
+        # not encodable and not uploaded; only legal for semi/anti filters)
+        self.pay_pos: list = list(range(len(payloads)))
 
     def flat_arrays(self):
-        """Device-arg layout: keys [, cnt] (offset contract shared with
-        the finder closures)."""
-        return [self.keys] + ([self.cnt] if self.cnt is not None else [])
+        """Device-arg layout: keys [, cnt], payloads..., payload validity
+        planes... (offset contract shared with the lowering closures)."""
+        out = [self.keys]
+        if self.cnt is not None:
+            out.append(self.cnt)
+        return out + list(self.payloads) + [v for v in self.pay_valids if v is not None]
+
+    def pay_valid_flat_idx(self) -> list:
+        """Per payload: index of its validity plane within flat_arrays()
+        (relative to this build's block), or None."""
+        out = []
+        nxt = (2 if self.cnt is not None else 1) + len(self.payloads)
+        for v in self.pay_valids:
+            if v is None:
+                out.append(None)
+            else:
+                out.append(nxt)
+                nxt += 1
+        return out
 
     def shape_key(self):
-        return (self.mode, int(self.keys.shape[0]), tuple(self.shifts), self.dup,
-                self.cnt is not None)
+        return (
+            self.mode, len(self.keys), tuple(self.shifts), self.dup,
+            self.cnt is not None, self.padded_rows(),
+            tuple(str(p.dtype) for p in self.payloads),
+            tuple(v is not None for v in self.pay_valids),
+            tuple(self.pay_pos),
+            tuple(_pow2(len(d)) if d else 0 for d in self.dicts),
+        )
+
+    def padded_rows(self) -> int:
+        """Padded payload length B: expansion-lane indices clip against
+        it."""
+        return self.payloads[0].shape[0] if self.payloads else _pow2(max(self.n_rows, 1))
 
 
 class DeviceTable:
@@ -552,13 +604,12 @@ class TpuStageExec(ExecutionPlan):
 
     def _prepare_build(self, join, jidx: int, ctx: TaskContext, table_key,
                        device) -> BuildTable:
-        """Collect + encode a filterless semi/anti join's build keys for
-        device membership probing."""
+        """Collect + encode a join's build side for device probing: the
+        direct unique and direct expansion layouts, with the payload
+        columns the probe gathers (none for a filterless semi/anti join)."""
+        from ballista_tpu_torch.ops.cuda.columnar import encode_column
         from ballista_tpu_torch.ops.phys_expr import bind_expr, evaluate_to_array
 
-        if join.join_type not in ("right_semi", "right_anti") or join.filter is not None:
-            raise Unsupported(
-                f"{join.join_type} join with payload gathers is not ported")
         cache_key = (table_key, self.fingerprint, jidx, str(device))
         hit = _BUILD_CACHE.get(cache_key)
         if hit is not None:
@@ -569,8 +620,8 @@ class TpuStageExec(ExecutionPlan):
             batches.extend(b for b in join.left.execute(p, ctx) if b.num_rows)
         tbl = _concat(batches, join.left.schema()).combine_chunks()
         if tbl.num_rows:
-            # a build row whose key is NULL can never match any probe row:
-            # drop it before encoding
+            # a build row whose key is NULL can never match any probe row
+            # (inner/semi/anti/outer alike): drop it before encoding
             import pyarrow.compute as _pc
 
             keep = None
@@ -588,7 +639,8 @@ class TpuStageExec(ExecutionPlan):
         batch = tbl.to_batches()[0]
 
         # combined int64 key, range-guarded; each extra key gets the
-        # smallest shift covering its build-side range
+        # smallest shift covering its build-side range (keeps combined keys
+        # dense enough for direct addressing)
         key_np = None
         shifts: list[int] = []
         for l_expr, _ in join.on:
@@ -615,25 +667,85 @@ class TpuStageExec(ExecutionPlan):
                 shifts.append(shift)
         uniq, counts = np.unique(key_np, return_counts=True)
         dup = int(counts.max())
+        membership_only = join.join_type in ("right_semi", "right_anti") and join.filter is None
+        cba = _mult_shape_check(self.partial_agg, self.ops, join)
+        # mirror _compile's activation exactly (counted build columns must be
+        # non-null): a looser exemption here would pay the full build
+        # collect/encode/upload only to fall back at compile time anyway
+        mult_shaped = cba is not None and all(
+            tbl.column(fi).null_count == 0 for fi in cba.values()
+        )
+        if dup > MAX_JOIN_DUP and not membership_only and not mult_shaped:
+            # filterless semi/anti probes only test membership, and
+            # aggregate-through-join stages consume match COUNTS — neither
+            # unrolls lanes, so any dup is fine there; inner/outer gathers
+            # and semi/anti FILTERS unroll dup lanes and are budgeted
+            raise Unsupported(f"build key multiplicity {dup} > {MAX_JOIN_DUP}")
+
         max_key = int(key_np.max())
         min_key = int(key_np.min())
         if not (min_key >= 0 and max_key + 1 <= DIRECT_TABLE_MAX):
             raise Unsupported("sorted-mode build (key range past the direct table) is not ported")
         T = _pow2(max_key + 1)
+        cnt_np = None
         if dup == 1:
             table = np.full(T, -1, dtype=np.int32)
             table[key_np] = np.arange(len(key_np), dtype=np.int32)
-            bt = BuildTable(_put(table, device), len(key_np))
+            keys_np = table
+            order = np.arange(len(key_np))
         else:
-            # expansion layout: lo/cnt tables (payload order key-sorted); a
-            # membership probe reads only cnt > 0
-            sorted_keys = np.sort(key_np, kind="stable")
+            # expansion layout: payloads key-sorted; lo/cnt tables give each
+            # probe its first matching row and its match count
+            order = np.argsort(key_np, kind="stable")
+            sorted_keys = key_np[order]
             lo_table = np.zeros(T, dtype=np.int32)
             cnt_table = np.zeros(T, dtype=np.int32)
             lo_table[uniq] = np.searchsorted(sorted_keys, uniq).astype(np.int32)
             cnt_table[uniq] = counts.astype(np.int32)
-            bt = BuildTable(_put(lo_table, device), len(key_np), dup=dup,
-                            cnt=_put(cnt_table, device))
+            keys_np = lo_table
+            cnt_np = cnt_table
+        B = _pow2(len(key_np))
+
+        kinds, scales, dicts, payloads, pay_valids, pay_pos = [], [], [], [], [], []
+        if not membership_only:
+            # membership-only joins never gather build columns: no payload
+            # encode/upload (an unencodable non-key column must not knock a
+            # semi join off the device). Semi/anti WITH a join filter only
+            # gather the columns the filter touches: tolerate unencodable
+            # columns with a None payload slot (lowering raises only if the
+            # filter uses one)
+            tolerate = join.join_type in ("right_semi", "right_anti")
+            for name in batch.schema.names:
+                dc = encode_column(batch.column(batch.schema.get_field_index(name)))
+                if dc is None:
+                    if not tolerate:
+                        raise Unsupported(f"unencodable build column {name}")
+                    kinds.append("?")
+                    scales.append(0)
+                    dicts.append(None)
+                    pay_pos.append(None)
+                    continue
+                kinds.append(dc.kind)
+                scales.append(dc.scale)
+                dicts.append(dc.dictionary)
+                padded = np.zeros(B, dtype=dc.data.dtype)
+                padded[: len(order)] = dc.data[order]
+                pay_pos.append(len(payloads))
+                payloads.append(padded)
+                if dc.valid is None:
+                    pay_valids.append(None)
+                else:
+                    pv = np.zeros(B, dtype=bool)  # padding slots stay invalid
+                    pv[: len(order)] = dc.valid[order]
+                    pay_valids.append(pv)
+
+        bt = BuildTable(
+            "direct", _put(keys_np, device), [_put(p, device) for p in payloads],
+            kinds, scales, dicts, len(order), dup=dup,
+            cnt=None if cnt_np is None else _put(cnt_np, device),
+            pay_valids=[None if v is None else _put(v, device) for v in pay_valids],
+        )
+        bt.pay_pos = pay_pos
         bt.shifts = shifts
         _BUILD_CACHE[cache_key] = bt
         return bt
@@ -703,8 +815,10 @@ class TpuStageExec(ExecutionPlan):
                               stats=rec)
         if sum(dt.part_rows) < self.min_rows:
             raise Unsupported(f"only {sum(dt.part_rows)} rows (< tpu min)")
+        t_b = time.time()
         builds = [self._prepare_build(op, jidx, ctx, table_key, device)
                   for jidx, op in enumerate(join_ops)]
+        rec["build_s"] = round(time.time() - t_b, 6)
 
         dec, est = self._fusion_decision(dt, builds)
         rec["fusion_reason"] = dec.reason
@@ -726,7 +840,7 @@ class TpuStageExec(ExecutionPlan):
         rec["fusion_mode"] = meta.get("fusion_mode", "fused_xla")
         rec["fused_spans"] = meta.get("fused_spans", 0)
         outs = [o.cpu().numpy() for o in outs]  # one fetch per output
-        res = self._decode_all(outs, meta, dt.shape[0], dt.dicts)
+        res = self._decode_all(outs, meta, dt.shape[0], dt.dicts, [b.dicts for b in builds])
         rec["exec_s"] = round(time.time() - t0, 6)
         return res
 
@@ -735,6 +849,7 @@ class TpuStageExec(ExecutionPlan):
     def _compile(self, dt: DeviceTable, builds: list[BuildTable], mode_req: str):
         """Lower the stage into one closure over (cols, luts, mask, builds).
         Returns (fn, lowering, meta); `fn` returns (outputs, run meta)."""
+        from ballista_tpu_torch.config import TPU_FUSION_PALLAS_MAX_PROBE
         from ballista_tpu_torch.ops.cuda import fusion as _fusion
         from ballista_tpu_torch.ops.cuda.cuda_kernels import MAX_GROUPS as _KERNEL_MAX_G
         from ballista_tpu_torch.plan.physical import HashJoinExec
@@ -751,8 +866,10 @@ class TpuStageExec(ExecutionPlan):
         use_pallas = mode_req == "fused_pallas"
         pallas_g_cap = min(int(self.config.get(TPU_FUSION_PALLAS_MAX_GROUPS)),
                            _KERNEL_MAX_G)
+        pallas_probe_max = int(self.config.get(TPU_FUSION_PALLAS_MAX_PROBE))
 
         ctx = Lowering(scan_schema, kinds, dicts)
+        ctx.pallas_dict_filter = use_pallas
         valid_idx = dt.valid_flat_idx()
         n_flat_cols = len(dt.cols) + sum(1 for v in dt.valids if v is not None)
         env_fns = []
@@ -769,29 +886,164 @@ class TpuStageExec(ExecutionPlan):
         for f in getattr(self.scan, "filters", []):
             filter_fns.append(lower_expr(f, ctx))
 
+        # one stage run's memo of join lookups: eager PyTorch has no CSE, so
+        # every build-column gather would otherwise re-run its join's probe
+        # (raw() clears it when the run ends)
+        memo: dict = {}
+        lane_cells = [{"d": 0} for _ in builds]
+        lane_dups: list[int] = []  # per build: lanes to unroll (1 for semi/anti)
+        outer_jidx: set[int] = set()  # joins whose build gathers are nullable-by-miss
+
+        # Aggregate-through-join pre-scan: when the LAST op is an inner/right
+        # join whose build columns appear ONLY as count(col) arguments (and
+        # group keys are probe-side), the stage aggregates THROUGH the join
+        # with per-row match counts — no dup-lane unrolling, no MAX_JOIN_DUP
+        # ceiling (the q13 shape: count(o_orderkey) group by c_custkey).
+        mult_jidx = None
+        mult_outer = False
+        count_build_aggs: dict[int, int] = {}  # agg idx → build field idx
+        join_ops = [o for o in self.ops if isinstance(o, HashJoinExec)]
+        if builds and join_ops:
+            jop = join_ops[-1]
+            bt_last = builds[-1]
+            cba = _mult_shape_check(agg, self.ops, jop)
+            if cba is not None and bt_last.dup > 1:
+                ok = True
+                for fi in cba.values():
+                    pp = bt_last.pay_pos[fi] if fi < len(bt_last.pay_pos) else None
+                    if pp is None or bt_last.pay_valids[pp] is not None:
+                        ok = False  # nullable build col: match count ≠ count(col)
+                if ok:
+                    mult_jidx = len(builds) - 1
+                    mult_outer = jop.join_type == "right"
+                    count_build_aggs = cba
+        mult_weight_fn = None
         jidx = 0
         for op in self.ops:
             _bind_env(ctx, cur_schema)
             if isinstance(op, FilterExec):
                 filter_fns.append(lower_expr(op.predicate, ctx))
             elif isinstance(op, HashJoinExec):
-                if op.join_type not in ("right_semi", "right_anti") or op.filter is not None:
-                    raise Unsupported(
-                        f"{op.join_type} join with payload gathers is not ported")
                 bt = builds[jidx]
                 # build arrays ride at the tail of the flattened cols list
                 # (after the scan columns AND their validity planes)
                 off = n_flat_cols + sum(len(builds[i].flat_arrays()) for i in range(jidx))
+                pay_off = off + (2 if bt.cnt is not None else 1)
                 probe_fns = [lower_expr(r, ctx) for (_, r) in op.on]
-                finder = _mk_join_finder(off, probe_fns, bt)
-                neg = op.join_type == "right_anti"
-                # membership only: the match mask filters probe rows
-                # (EXISTS / NOT IN after decorrelation) — no build columns,
-                # no expansion lanes, schema unchanged
-                filter_fns.append(
-                    lambda cols, luts, _f=finder, _n=neg:
-                    DevVal("bool", ~_f(cols, luts) if _n else _f(cols, luts))
+                probe_pallas = (
+                    use_pallas and bt.mode == "direct" and bt.cnt is None
+                    and bt.dup == 1
+                    and int(bt.keys.shape[0]) <= pallas_probe_max
                 )
+                finder = _mk_join_finder(off, probe_fns, bt, lane_cells[jidx], memo,
+                                         pallas=probe_pallas)
+                pv_idx = bt.pay_valid_flat_idx()
+                if op.join_type in ("right_semi", "right_anti"):
+                    neg = op.join_type == "right_anti"
+                    if op.filter is None:
+                        # membership only: the match mask filters probe rows
+                        # (EXISTS / NOT IN after decorrelation) — no build
+                        # columns, no expansion lanes, schema unchanged
+                        filter_fns.append(
+                            lambda cols, luts, _f=finder, _n=neg:
+                            DevVal("bool", ~_f(cols, luts)[1].arr if _n else _f(cols, luts)[1].arr)
+                        )
+                    else:
+                        # EXISTS with a correlated residual predicate (q21's
+                        # l2.l_suppkey <> l1.l_suppkey): OR the filtered
+                        # match across all dup lanes of the build key
+                        if bt.dup > MAX_JOIN_DUP:
+                            raise Unsupported(
+                                f"semi/anti join filter over dup {bt.dup} > {MAX_JOIN_DUP}"
+                            )
+                        lane_preds = []
+                        saved_fns, saved_meta = list(ctx.env_fns), list(ctx.env_meta)
+                        combined_schema = op.left.df_schema.merge(cur_schema)
+                        for d in range(bt.dup):
+                            finder_d = _mk_join_finder(off, probe_fns, bt, {"d": d}, memo)
+                            gfns, gmeta = [], []
+                            for ci, pp in enumerate(bt.pay_pos):
+                                if pp is None:
+                                    gfns.append(_mk_raising(
+                                        f"unencodable build column {ci} in join filter"))
+                                    gmeta.append(None)
+                                else:
+                                    gfns.append(_mk_build_gather(
+                                        pay_off, pp, bt.kinds[ci], bt.scales[ci],
+                                        bt.dicts[ci], finder_d,
+                                        None if pv_idx[pp] is None else off + pv_idx[pp]))
+                                    gmeta.append((bt.kinds[ci], bt.scales[ci],
+                                                  bt.dicts[ci], ("build", jidx, ci)))
+                            ctx.env_fns = gfns + saved_fns
+                            ctx.env_meta = gmeta + saved_meta
+                            _bind_env(ctx, combined_schema)
+                            lane_preds.append((finder_d, lower_expr(op.filter, ctx)))
+                        ctx.env_fns, ctx.env_meta = saved_fns, saved_meta
+                        _bind_env(ctx, cur_schema)
+
+                        def run(cols, luts, _lp=lane_preds, _n=neg):
+                            any_m = None
+                            for fd, pf in _lp:
+                                _, matched = fd(cols, luts)
+                                md = true_mask(matched) & true_mask(pf(cols, luts))
+                                any_m = md if any_m is None else any_m | md
+                            return DevVal("bool", ~any_m if _n else any_m)
+
+                        filter_fns.append(run)
+                    lane_dups.append(1)
+                    jidx += 1
+                    continue
+                if jidx == mult_jidx:
+                    # aggregate-through-join: ONE count gather replaces all
+                    # dup match lanes; build columns are never materialized
+                    counter = _mk_join_counter(off, probe_fns, bt, memo)
+                    if op.join_type == "inner":
+                        filter_fns.append(
+                            lambda cols, luts, _c=counter:
+                            DevVal("bool", _c(cols, luts) > 0)
+                        )
+                    mult_weight_fn = counter
+                    n_bf = len(op.left.df_schema)
+                    ctx.env_fns = [
+                        _mk_raising("build column consumed as a value in an "
+                                    "aggregate-through-join stage")
+                    ] * n_bf + list(ctx.env_fns)
+                    ctx.env_meta = [None] * n_bf + list(ctx.env_meta)
+                    cur_schema = op.df_schema
+                    lane_dups.append(1)
+                    jidx += 1
+                    continue
+                outer = op.join_type == "right"
+                if outer:
+                    outer_jidx.add(jidx)
+                    # right outer: every probe row emits — on lane 0
+                    # unconditionally (unmatched rows ride lane 0 with NULL
+                    # build gathers), on later lanes only when matched
+                    def emit(cols, luts, _f=finder, _cell=lane_cells[jidx]):
+                        _, matched = _f(cols, luts)
+                        if _cell["d"] == 0:
+                            return DevVal("bool", torch.ones_like(matched.arr))
+                        return matched
+
+                    filter_fns.append(emit)
+                else:
+                    filter_fns.append(lambda cols, luts, _f=finder: _f(cols, luts)[1])
+                lane_dups.append(bt.dup)
+                build_fns = [
+                    _mk_build_gather(pay_off, ci, bt.kinds[ci], bt.scales[ci], bt.dicts[ci],
+                                     finder,
+                                     None if pv_idx[ci] is None else off + pv_idx[ci],
+                                     outer=outer)
+                    for ci in range(len(bt.payloads))
+                ]
+                build_meta = [
+                    (bt.kinds[ci], bt.scales[ci], bt.dicts[ci], ("build", jidx, ci))
+                    for ci in range(len(bt.payloads))
+                ]
+                # exec output order: build fields then probe fields
+                ctx.env_fns = build_fns + list(ctx.env_fns)
+                ctx.env_meta = build_meta + list(ctx.env_meta)
+                cur_schema = op.df_schema
                 jidx += 1
             elif isinstance(op, ProjectionExec):
                 new_fns, new_meta = [], []
@@ -805,11 +1057,22 @@ class TpuStageExec(ExecutionPlan):
             else:
                 raise Unsupported(f"op {type(op).__name__}")
         _bind_env(ctx, cur_schema)
+        lane_sets = list(itertools.product(*[range(d) for d in lane_dups]))
+        if len(lane_sets) > MAX_JOIN_DUP:
+            raise Unsupported(f"{len(lane_sets)} expansion-join lanes > {MAX_JOIN_DUP}")
 
         # Group-key strategy: small dictionary domains unroll into per-group
         # masked reductions. Everything else (int64 keys, composite keys,
-        # big dictionaries) needs the sorted segmented reduction, which
-        # is not ported.
+        # big dictionaries, nullable keys) needs the sorted segmented
+        # reduction, which is not ported.
+        def _slot_nullable(slot) -> bool:
+            if isinstance(slot, tuple) and slot[0] == "build":
+                if slot[1] in outer_jidx:
+                    return True  # unmatched outer gathers are NULL
+                pp = builds[slot[1]].pay_pos[slot[2]]
+                return pp is None or builds[slot[1]].pay_valids[pp] is not None
+            return dt.valids[slot] is not None
+
         unrolled = True
         group_src_slots: list = []
         group_fns: list = []
@@ -824,7 +1087,7 @@ class TpuStageExec(ExecutionPlan):
             if gmeta is None or gmeta[0] != "code" or gmeta[2] is None:
                 unrolled = False
                 break
-            if dt.valids[gmeta[3]] is not None:
+            if _slot_nullable(gmeta[3]):
                 # a NULL group key needs its own group: the unrolled
                 # code-domain form cannot tell null from code 0
                 unrolled = False
@@ -837,17 +1100,19 @@ class TpuStageExec(ExecutionPlan):
         for p in pad_sizes:
             G *= p
         G = max(G, 1)
+        n_lanes = len(lane_sets)
         if unrolled and agg.group_exprs and (
-            G > 64 or G * P > MAX_SEGMENTS * 16
+            G * n_lanes > 64 or G * n_lanes * P > MAX_SEGMENTS * 16
         ):
-            # beyond this budget the unrolled form stops scaling — UNLESS the
-            # kernel rung was requested and the stage fits it: its one pass
-            # carries all G groups, so the 64-group budget lifts to the
+            # the unrolled form materializes G masked reductions PER
+            # expansion lane; beyond this budget it stops scaling — UNLESS
+            # the kernel rung was requested and the stage fits it: its one
+            # pass carries all G groups, so the 64-group budget lifts to the
             # kernel ceiling. If the value lanes turn out ineligible when the
             # stage runs (money int64 sums, validity planes), raw() raises
             # Unsupported and the ladder retries as fused_xla.
             pallas_agg_ok = (
-                use_pallas
+                use_pallas and n_lanes == 1 and mult_jidx is None
                 and G <= pallas_g_cap and G * P <= 1 << 22
                 and all(d.func in ("sum", "count", "count_all")
                         for d in agg.aggs)
@@ -858,11 +1123,22 @@ class TpuStageExec(ExecutionPlan):
             raise Unsupported("sorted large-domain aggregation is not ported")
 
         agg_fns = []
-        for d in agg.aggs:
-            if d.func not in ("sum", "min", "max", "count", "count_all",
-                              "welford_mean", "welford_m2"):
+        agg_modes = []  # "row" | "build_cnt" (count of a mult-join build col)
+        for ai, d in enumerate(agg.aggs):
+            if d.func in ("welford_mean", "welford_m2"):
+                # mean/M2 partials are not additive across expansion lanes and
+                # have no weighted form: only plain (single-lane, unweighted)
+                # stages carry variance on device
+                if mult_weight_fn is not None or n_lanes != 1:
+                    raise Unsupported("welford through expansion join")
+            elif d.func not in ("sum", "min", "max", "count", "count_all"):
                 raise Unsupported(f"agg {d.func}")
-            agg_fns.append(lower_expr(d.expr, ctx) if d.expr is not None else None)
+            if ai in count_build_aggs:
+                agg_fns.append(None)
+                agg_modes.append("build_cnt")
+            else:
+                agg_fns.append(lower_expr(d.expr, ctx) if d.expr is not None else None)
+                agg_modes.append("row")
 
         meta = {
             "fused_spans": len(spans),
@@ -873,14 +1149,15 @@ class TpuStageExec(ExecutionPlan):
 
         def eval_pred(cols, luts, mask):
             """predicate span: scan filters, FilterExec predicates, semi/
-            anti membership masks — one [P, N] boolean."""
+            anti membership masks, join match masks — one [P, N] boolean."""
             m = mask
             for ff in filter_fns:
                 m = m & true_mask(ff(cols, luts))
             return m
 
         def eval_proj(cols, luts):
-            """project span: group-id composition and agg value lanes."""
+            """project/probe span: group-id composition and agg value lanes
+            (join-probe gathers ride inside the lowered column closures)."""
             gid = None
             for gf, psz in zip(group_fns, pad_sizes):
                 codes = gf(cols, luts).arr.to(torch.int32)
@@ -888,9 +1165,9 @@ class TpuStageExec(ExecutionPlan):
             vs = [af(cols, luts) if af is not None else None for af in agg_fns]
             return gid, vs
 
-        def aggregate_lane(m, gid, vs):
-            """aggregate span: per-group masked reductions (the exact torch
-            form)."""
+        def aggregate_lane(m, gid, vs, w, m_eff):
+            """aggregate span, one expansion lane: per-group masked
+            reductions (the exact torch form)."""
             gmasks = [m & (gid == g) for g in range(G)] if gid is not None else [m]
             outs = []
             out_meta = []
@@ -901,8 +1178,15 @@ class TpuStageExec(ExecutionPlan):
                     out_meta.append(("i64", 0))
                 else:
                     out_meta.append(("i64", 0) if d.func == "count" else (v.kind, v.scale))
-                outs.append(torch.stack(
-                    [_masked_reduce(v, gm, d.func) for gm in gmasks], dim=1))  # [P, G]
+                cols_out = []
+                for gm in gmasks:
+                    if agg_modes[ai] == "build_cnt":
+                        cols_out.append(torch.where(gm, w, 0).to(torch.int64).sum(dim=1))
+                    elif m_eff is None:
+                        cols_out.append(_masked_reduce(v, gm, d.func))
+                    else:
+                        cols_out.append(_masked_reduce_w(v, gm, d.func, m_eff))
+                outs.append(torch.stack(cols_out, dim=1))  # [P, G]
                 if (v is not None and v.valid is not None
                         and d.func in ("sum", "min", "max",
                                        "welford_mean", "welford_m2")):
@@ -913,7 +1197,7 @@ class TpuStageExec(ExecutionPlan):
                         [(gm & v.valid).sum(dim=1) for gm in gmasks], dim=1))
             presence = torch.stack([gm.sum(dim=1) for gm in gmasks], dim=1)
             info = {"out": out_meta, "nullcnt_map": nullcnt_map, "fusion_mode": "fused_xla"}
-            return outs + nullcnts + [presence], info
+            return outs, nullcnts, presence, info
 
         def pallas_lane(m, gid, vs):
             """aggregate span, kernel form: `masked_group_reduce` computes
@@ -945,19 +1229,18 @@ class TpuStageExec(ExecutionPlan):
                     outs.append(sum_results[i_].to(torch.float64))
                     out_meta.append(("f64", 0))
             info = {"out": out_meta, "nullcnt_map": {}, "fusion_mode": "fused_pallas"}
-            return outs + [counts], info
+            return outs, [], counts, info
 
-        def raw(cols, luts, mask, build_args):
-            # keep [P, N]: partitions are the leading axis, reductions run
-            # over dim=1. Build arrays are appended after the scan columns.
-            # Returns the outputs (aggregates, null counts, presence) and
-            # this run's output metadata.
-            cols = list(cols) + [a for b in build_args for a in b]
+        def run_lane(cols, luts, mask):
             m = eval_pred(cols, luts, mask)
             gid, vs = eval_proj(cols, luts)
+            w = m_eff = None
+            if mult_weight_fn is not None:
+                w = torch.broadcast_to(mult_weight_fn(cols, luts), mask.shape)
+                m_eff = torch.clamp(w, min=1) if mult_outer else w
             pallas_ok = (
                 use_pallas and gid is not None and aggs
-                and G <= pallas_g_cap
+                and G <= pallas_g_cap and mult_weight_fn is None
                 and all(v is None or v.valid is None for v in vs)
                 and all(
                     d.func in ("count", "count_all")
@@ -967,21 +1250,62 @@ class TpuStageExec(ExecutionPlan):
             )
             if pallas_ok:
                 return pallas_lane(m, gid, vs)
-            if use_pallas and (G > 64 or G * m.shape[0] > MAX_SEGMENTS * 16):
+            if use_pallas and (G * n_lanes > 64
+                               or G * n_lanes * m.shape[0] > MAX_SEGMENTS * 16):
                 # this stage only kept the unrolled form because the relaxed
                 # kernel budget admitted it; its value lanes turned out
                 # kernel-ineligible — refuse the G-wide unroll and let the
                 # fallback ladder retry
                 raise Unsupported(f"pallas-ineligible aggregation at G={G}")
-            return aggregate_lane(m, gid, vs)
+            return aggregate_lane(m, gid, vs, w, m_eff)
+
+        def raw(cols, luts, mask, build_args):
+            # keep [P, N]: partitions are the leading axis, reductions run
+            # over dim=1. Build arrays are appended after the scan columns.
+            # Expansion joins unroll match lanes: the pipeline runs once per
+            # lane combination (the closures read each join's lane `d` from
+            # its cell at run time) and reductions accumulate across lanes.
+            # Returns the outputs (aggregates, null counts, presence) and
+            # this run's output metadata.
+            cols = list(cols) + [a for b in build_args for a in b]
+            outs = presence = info = None
+            nullcnts: list = []
+            memo.clear()
+            try:
+                for lane in lane_sets:
+                    for cell, d_ in zip(lane_cells, lane):
+                        cell["d"] = d_
+                    outs_l, nullcnt_l, presence_l, info = run_lane(cols, luts, mask)
+                    if outs is None:
+                        outs, presence, nullcnts = outs_l, presence_l, nullcnt_l
+                        continue
+                    merged = []
+                    for d, prev, cur in zip(aggs, outs, outs_l):
+                        if d.func == "min":
+                            merged.append(torch.minimum(prev, cur))
+                        elif d.func == "max":
+                            merged.append(torch.maximum(prev, cur))
+                        else:  # sum / count: additive across lanes
+                            merged.append(prev + cur)
+                    outs = merged
+                    presence = presence + presence_l
+                    nullcnts = [p_ + c_ for p_, c_ in zip(nullcnts, nullcnt_l)]
+            finally:
+                memo.clear()
+            return list(outs) + list(nullcnts) + [presence], info
 
         return raw, ctx, meta
 
-    def _decode_all(self, outs: list[np.ndarray], meta: dict, P: int,
-                    dicts) -> dict[int, list[pa.RecordBatch]]:
+    def _decode_all(self, outs: list[np.ndarray], meta: dict, P: int, dicts,
+                    build_dicts: list | None = None) -> dict[int, list[pa.RecordBatch]]:
         agg = self.partial_agg
         schema = self.schema()
-        group_dicts = [dicts[s] for s in meta["group_src_slots"]]
+        group_dicts = []
+        for s in meta["group_src_slots"]:
+            if isinstance(s, tuple) and s[0] == "build":
+                group_dicts.append(build_dicts[s[1]][s[2]])
+            else:
+                group_dicts.append(dicts[s])
         presence = outs[-1]  # [P, G]
         n_aggs = len(meta["out"])
         nullcnt_map = meta.get("nullcnt_map", {})
@@ -1030,6 +1354,26 @@ def _put(arr: np.ndarray, device) -> torch.Tensor:
     upload."""
     hbm.maybe_chaos_oom()
     return to_device(arr, device)
+
+
+def _masked_reduce_w(v, gm, func: str, m_eff):
+    """Weighted reduction for aggregate-through-join: each probe row stands
+    in for m_eff joined rows (match count; max(count, 1) under outer)."""
+    if func == "count_all":
+        return torch.where(gm, m_eff, 0).to(torch.int64).sum(dim=1)
+    if func == "count":
+        m2 = gm if (v is None or v.valid is None) else gm & v.valid
+        return torch.where(m2, m_eff, 0).to(torch.int64).sum(dim=1)
+    if func == "sum":
+        arr = torch.broadcast_to(v.arr, gm.shape)
+        if v.valid is not None:
+            gm = gm & v.valid
+        scaled = arr * m_eff.to(arr.dtype)
+        return torch.where(gm, scaled, torch.zeros((), dtype=arr.dtype,
+                                                    device=arr.device)).sum(dim=1)
+    # min/max are multiplicity-invariant (w==0 rows are filtered for inner
+    # joins; under outer every probe row legitimately appears)
+    return _masked_reduce(v, gm, func)
 
 
 def _masked_reduce(v, gm, func: str):
@@ -1093,39 +1437,85 @@ def _mk_col_reader(i: int, kind: str, scale: int, dictionary, valid_idx=None):
     return run
 
 
-def _mk_join_finder(off: int, probe_fns, bt: BuildTable):
-    """Closure computing each probe row's build membership (bool [P, N]),
-    'direct' mode. Unique keys: the build shipped a dense key→row int32
-    table — ONE gather per probe, matched iff row >= 0. Repeated keys: the
-    lo/cnt tables, matched iff cnt > 0. Multi-key probes combine as
-    k1 << shift | k2 with device range guards mirroring the host-side
-    guards, so out-of-range keys can never alias a real build key."""
+def _probe_key(cols, luts, probe_fns, shifts):
+    """The combined int64 probe key and its validity: multi-key probes
+    combine as k1 << shift | k2 with device range guards mirroring the
+    host-side guards, so out-of-range keys can never alias a real build
+    key; a NULL probe key matches nothing."""
+    valid = None
+    k = None
+    for i, pf in enumerate(probe_fns):
+        v = pf(cols, luts)
+        if v.kind not in ("i64", "date"):
+            raise Unsupported(f"non-integer probe key kind {v.kind}")
+        ki = v.arr.to(torch.int64)
+        if i == 0:
+            k = ki
+            valid = ki >= 0
+        else:
+            shift = shifts[i - 1]
+            valid = valid & (ki >= 0) & (ki < (1 << shift))
+            k = (k << shift) | ki
+        if v.valid is not None:
+            valid = valid & v.valid
+    return k, valid
+
+
+def _memoized(memo: dict, key, cols, compute):
+    """One stage run's memo (see _compile): the entry pins `cols`, so its
+    id cannot be recycled while the entry lives, and the identity check
+    makes a stale hit impossible."""
+    hit = memo.get(key)
+    if hit is None or hit[0] is not cols:
+        hit = (cols, compute())
+        memo[key] = hit
+    return hit[1]
+
+
+def _mk_join_finder(off: int, probe_fns, bt: BuildTable, cell: dict, memo: dict,
+                    pallas: bool = False):
+    """Closure computing (clamped build index, matched mask) for one join,
+    'direct' mode.
+
+    Unique keys: the build shipped a dense key→row int32 table — ONE gather
+    per probe, matched iff row >= 0. Repeated keys (dup > 1): the lo/cnt
+    tables; the probe's match lane d (`cell["d"]`, set by the lane loop
+    before each lane runs) selects row lo+d, matched iff d < cnt.
+
+    `pallas=True` (unique keys only) routes the lookup through the
+    hand-written `hash_probe` kernel: table in shared memory, gather and
+    match mask fused. Every build-column gather closure re-invokes the
+    finder, so the result is memoized per stage run and lane, keyed by the
+    identity of the run's `cols` list and `d`: one lookup (one kernel
+    launch) per join per lane."""
     shifts = bt.shifts
     has_cnt = bt.cnt is not None
+    b_static = bt.padded_rows()
+    token = object()
 
-    def run(cols, luts):
+    def find(cols, luts, d):
         keys_arr = cols[off]
-        valid = None
-        k = None
-        for i, pf in enumerate(probe_fns):
-            v = pf(cols, luts)
-            if v.kind not in ("i64", "date"):
-                raise Unsupported(f"non-integer probe key kind {v.kind}")
-            ki = v.arr.to(torch.int64)
-            if i == 0:
-                k = ki
-                valid = ki >= 0
-            else:
-                shift = shifts[i - 1]
-                valid = valid & (ki >= 0) & (ki < (1 << shift))
-                k = (k << shift) | ki
-            if v.valid is not None:
-                valid = valid & v.valid  # a NULL probe key matches nothing
+        k, valid = _probe_key(cols, luts, probe_fns, shifts)
         in_range = valid & (k >= 0) & (k < keys_arr.shape[0])
         kc = torch.where(in_range, k, 0)
-        if has_cnt:
-            return in_range & (take(cols[off + 1], kc) > 0)
-        return in_range & (take(keys_arr, kc) >= 0)
+        if not has_cnt:
+            if pallas:
+                from ballista_tpu_torch.ops.cuda.cuda_kernels import hash_probe
+
+                rows, matched = hash_probe(kc.to(torch.int32), keys_arr, in_range)
+                return rows, DevVal("bool", matched)
+            row = take(keys_arr, kc)
+            matched = in_range & (row >= 0)
+            return row.clamp(min=0).to(torch.int32), DevVal("bool", matched)
+        lo = take(keys_arr, kc)
+        c = take(cols[off + 1], kc)
+        matched = in_range & (d < c)
+        idxc = (lo + d).clamp(0, b_static - 1).to(torch.int32)
+        return idxc, DevVal("bool", matched)
+
+    def run(cols, luts):
+        d = cell["d"]
+        return _memoized(memo, (token, id(cols), d), cols, lambda: find(cols, luts, d))
 
     return run
 
@@ -1135,8 +1525,9 @@ def _mult_shape_check(partial_agg, ops, join) -> dict | None:
     stage's LAST join (only pass-through projections may follow), inner or
     right with no residual filter, group keys probe-side, and every
     build-column use a bare count(col). Returns {agg index → build field
-    index} (may be empty) or None if ineligible. The cost model reads it
-    (fusion.estimate_stage); the port does not run that path yet."""
+    index} (may be empty) or None if ineligible. Shared by _prepare_build
+    (to exempt such joins from the dup-lane cap), _compile (to activate the
+    weight path) and the cost model (fusion.estimate_stage)."""
     from ballista_tpu_torch.plan.physical import ProjectionExec
 
     real_ops = [o for o in ops if not isinstance(o, CoalesceBatchesExec)]
@@ -1198,6 +1589,62 @@ def _mult_shape_check(partial_agg, ops, join) -> dict | None:
         else:
             return None
     return out
+
+
+def _mk_join_counter(off: int, probe_fns, bt: BuildTable, memo: dict):
+    """Closure computing each probe row's MATCH COUNT against the build —
+    the aggregate-through-join weight. Where every build-column use in the
+    stage is multiplicity-shaped (count(col), count(*), probe-side sums),
+    gathering the count replaces dup-lane unrolling entirely: one gather
+    instead of dup lane passes, and no MAX_JOIN_DUP ceiling."""
+    shifts = bt.shifts
+    has_cnt = bt.cnt is not None
+    token = object()
+
+    def count(cols, luts):
+        keys_arr = cols[off]
+        k, valid = _probe_key(cols, luts, probe_fns, shifts)
+        in_range = valid & (k >= 0) & (k < keys_arr.shape[0])
+        kc = torch.where(in_range, k, 0)
+        zero = torch.zeros((), dtype=torch.int32, device=kc.device)
+        if has_cnt:
+            return torch.where(in_range, take(cols[off + 1], kc), zero)
+        row = take(keys_arr, kc)
+        return (in_range & (row >= 0)).to(torch.int32)
+
+    def run(cols, luts):
+        return _memoized(memo, (token, id(cols)), cols, lambda: count(cols, luts))
+
+    return run
+
+
+def _mk_raising(msg: str):
+    def run(cols, luts):
+        raise Unsupported(msg)
+
+    return run
+
+
+def _mk_build_gather(pay_off: int, ci: int, kind: str, scale: int, dictionary, finder,
+                     valid_abs_idx=None, outer=False):
+    """Gather one build-payload column through the join finder. Nullable
+    payloads gather their validity plane too; under an outer join the gather
+    of an UNMATCHED probe row is NULL (valid = matched & payload-valid)."""
+
+    def run(cols, luts):
+        idxc, matched = finder(cols, luts)
+        arr = take(cols[pay_off + ci], idxc)
+        if kind in ("i64", "money") and arr.dtype != torch.int64:
+            arr = arr.to(torch.int64)
+        elif kind in ("code", "date") and arr.dtype != torch.int32:
+            arr = arr.to(torch.int32)
+        valid = take(cols[valid_abs_idx], idxc) if valid_abs_idx is not None else None
+        if outer:
+            m = true_mask(matched)
+            valid = m if valid is None else valid & m
+        return DevVal(kind, arr, scale, dictionary, valid=valid)
+
+    return run
 
 
 def _bind_env(ctx: Lowering, schema: DFSchema) -> None:

@@ -8,27 +8,38 @@ Phases, each fatal on failure (non-zero exit, no result line):
 2. build every CUDA kernel from ballista_tpu_torch/ops/cuda/csrc with nvcc
    for sm_90a (one nvcc per source, started together);
 3. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes (masked_group_reduce: q4's P=8, N=262144, G=8, and a
-   multi-tile G=300): counts exact, sums within rtol 1e-4 / atol 1e-4 (the
-   JAX package's own kernel bound), two runs bitwise identical; time the
-   kernel, its plain version and one library call (torch.bincount) with
-   CUDA events;
-4. generate TPC-H with the port's generator (SF10 for q1/q6, SF1 for q4,
-   seed 42; reused when a matching manifest exists) and run q1, q6 and q4
+   main path's shapes, two runs bitwise identical, and time the kernel,
+   its plain version and one library call with CUDA events:
+   masked_group_reduce at q4's P=8, N=262144, G=8 and a multi-tile G=300
+   (counts exact, sums within rtol 1e-4 / atol 1e-4, the JAX package's own
+   kernel bound; library call torch.bincount); hash_probe at q5's
+   P=8, N=8388608, T=32 (table in shared memory) and T=1<<18 with 30%
+   absent keys (table read through the read-only cache), exact (library
+   call torch.take); dict_filter at q12's P=8, N=2097152, T=8, and T=4096
+   and T=1<<17 (the global-LUT regime), exact (library call torch.take);
+4. generate TPC-H with the port's generator (SF10 for q1/q6/q5/q12, SF1
+   for q4, seed 42; reused when a matching manifest exists) and run q1,
+   q6, q5 (auto mode), q12 (ballista.tpu.fusion.mode=fused_pallas) and q4
    through SessionContext with engine=tpu on the card — one warm-up, best
    of 3 — checking each answer against the port's engine=cpu (ints, dates
    and strings exact; float columns, which the CPU engine sums in float64
    where the card sums exact int64 cents, within rtol 1e-9), that every
-   device stage ran on the card with no CPU fallback, that q4 launched the
-   kernel, and that the fusion modes are the reference's (q4 fused_pallas,
-   q1 fused_xla after the money gate); one more traced run per query gives
-   the card's busy time and idle share (torch.profiler, checked first
-   against CUDA events on a copy of known size; "null" when unchecked);
+   device stage ran on the card with no CPU fallback, that the device
+   stage holds the expected joins, that the kernels of each path were
+   launched (q4: masked_group_reduce; q5: hash_probe at least twice per
+   run; q12: dict_filter at least once per run), and that the fusion
+   modes are the reference's (q4 fused_pallas; q1, q6 fused_xla; q5
+   requests fused_pallas and reports fused_xla after the money gate; q12
+   fused_xla); the launch counts are set to 0 just before each query and
+   read just after; one more traced run per query gives the card's busy
+   time, idle share and six largest device ops (torch.profiler, checked
+   first against CUDA events on a copy of known size; "null" when
+   unchecked);
 5. print one JSON line of kernel numbers, the card line, and last
    {"ok": true, "device": {...}}.
 
-Options: --scale (q1/q6 scale factor, default 10), --q4-scale (default 1),
---data-dir (default build/tpch, listed in .gitignore).
+Options: --scale (q1/q6/q5/q12 scale factor, default 10), --q4-scale
+(default 1), --data-dir (default build/tpch, listed in .gitignore).
 """
 
 from __future__ import annotations
@@ -126,11 +137,12 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_busy_ms(fn, iters: int = 1) -> float | None:
+def device_busy_ms(fn, iters: int = 1, by_name: dict | None = None) -> float | None:
     """Milliseconds in which the card ran at least one kernel, copy or fill
     while `fn` ran `iters` times: the union of the device events of a
     torch.profiler trace taken with CPU and CUDA activity. None when the
-    trace holds no device event."""
+    trace holds no device event. `by_name`, when given, receives each
+    device event name's [total ms, count]."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -140,8 +152,13 @@ def device_busy_ms(fn, iters: int = 1) -> float | None:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    if by_name is not None:
+        for e in events:
+            acc = by_name.setdefault(e.name, [0.0, 0])
+            acc[0] += (e.time_range.end - e.time_range.start) / 1e3
+            acc[1] += 1
     busy_us, reach = 0.0, float("-inf")
     for start, end in spans:
         if end > reach:
@@ -168,6 +185,107 @@ def check_busy_method(dev) -> bool:
         f"{'none' if busy is None else f'{busy / 10:.4f}'} ms, byte floor {floor_ms:.4f} ms"
         f" -> {'trusted' if ok else 'NOT trusted: busy times reported as null'}")
     return ok
+
+
+def _bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def _timings(kernel, plain, library, busy_ok: bool) -> dict:
+    """CUDA-event means of the kernel's wrapper (50 launches), its plain
+    form (10) and the library call (50); the kernel's own device time from
+    the checked profiler method (20 launches), None when unchecked."""
+    busy = device_busy_ms(kernel, 20) if busy_ok else None
+    return {"ms": cuda_ms(kernel, 50), "device_ms": None if busy is None else busy / 20,
+            "plain_ms": cuda_ms(plain, 10), "library_ms": cuda_ms(library, 50)}
+
+
+def gather_phase(dev, busy_ok: bool) -> list[dict]:
+    """hash_probe and dict_filter against their plain forms: exact, reruns
+    bitwise identical, at the main path's shapes and at large tables.
+    Returns one record per kernel (main-path shape, with the large-table
+    timing under "large")."""
+    import numpy as np
+    import torch
+
+    from ballista_tpu_torch.ops.cuda import cuda_kernels as ck
+
+    rng = np.random.default_rng(11)
+    records = []
+    smem = {k: ck.smem_max_entries(k) for k in ("hash_probe", "dict_filter")}
+    # (P, N, T, share of table slots present): q5's nation join, and the
+    # largest table the engine sends the kernel (pallas.max.probe.rows)
+    # with 30% of its keys absent
+    hp = {}
+    for P, N, T, present in ((8, 8388608, 32, 25 / 32), (8, 8388608, 1 << 18, 0.7)):
+        table_np = np.full(T, -1, np.int32)
+        slots = rng.choice(T, size=int(T * present), replace=False)
+        table_np[slots] = rng.permutation(len(slots)).astype(np.int32)
+        table = torch.as_tensor(table_np, device=dev)
+        keys = torch.randint(0, T, (P, N), dtype=torch.int32, device=dev)
+        mask = torch.rand((P, N), device=dev) < 0.9
+        r1, m1 = ck.hash_probe(keys, table, mask)
+        r2, m2 = ck.hash_probe(keys, table, mask)
+        rp, mp = ck.hash_probe_plain(keys, table, mask)
+        torch.cuda.synchronize()
+        if not (torch.equal(r1, r2) and torch.equal(m1, m2)):
+            raise AssertionError(f"hash_probe T={T}: two runs differ bitwise")
+        if not (torch.equal(r1, rp) and torch.equal(m1, mp)):
+            raise AssertionError(f"hash_probe T={T}: differs from the plain form")
+        regime = "shared" if T <= smem["hash_probe"] else "global"
+        log(f"hash_probe P={P} N={N} T={T} ({regime} table): exact, reruns bitwise identical")
+        keys_l = keys.long()
+        rec = _timings(lambda: ck.hash_probe(keys, table, mask),
+                       lambda: ck.hash_probe_plain(keys, table, mask),
+                       lambda: torch.take(table, keys_l), busy_ok)
+        # keys (4 B) and mask (1 B) read, rows (4 B) and matched (1 B)
+        # written per row, the table read once; a compare and a select per row
+        rec["bound_ms"], rec["bound_by"] = _bound(P * N * 10 + T * 4, 2 * P * N)
+        rec.update(shape=[P, N, T], table=regime)
+        hp[T] = rec
+        del keys, keys_l, mask, r1, r2, rp, m1, m2, mp
+    main = hp[32]
+    main["large"] = hp[1 << 18]
+    records.append({"name": "hash_probe", "route": "cuda",
+                    "source": "ballista_tpu_torch/ops/cuda/csrc/hash_probe.cu",
+                    "replaces": "ballista_tpu/ops/tpu/pallas_kernels.py:185",
+                    "max_abs_err": 0.0, **main})
+
+    df = {}
+    for P, N, T in ((8, 2097152, 8), (8, 2097152, 4096), (8, 2097152, 1 << 17)):
+        lut = torch.as_tensor(rng.random(T) < 0.4, device=dev)
+        codes = torch.randint(0, T, (P, N), dtype=torch.int32, device=dev)
+        mask = torch.rand((P, N), device=dev) < 0.9
+        k1 = ck.dict_filter(codes, lut, mask)
+        k2 = ck.dict_filter(codes, lut, mask)
+        kp = ck.dict_filter_plain(codes, lut, mask)
+        torch.cuda.synchronize()
+        if not torch.equal(k1, k2):
+            raise AssertionError(f"dict_filter T={T}: two runs differ bitwise")
+        if not torch.equal(k1, kp):
+            raise AssertionError(f"dict_filter T={T}: differs from the plain form")
+        regime = "shared" if T <= smem["dict_filter"] else "global"
+        log(f"dict_filter P={P} N={N} T={T} ({regime} LUT): exact, reruns bitwise identical")
+        if T == 4096:
+            continue
+        codes_l = codes.long()
+        rec = _timings(lambda: ck.dict_filter(codes, lut, mask),
+                       lambda: ck.dict_filter_plain(codes, lut, mask),
+                       lambda: torch.take(lut, codes_l), busy_ok)
+        # codes (4 B) and mask (1 B) read, keep (1 B) written per row, the
+        # LUT read once; a compare and an and per row
+        rec["bound_ms"], rec["bound_by"] = _bound(P * N * 6 + T, 2 * P * N)
+        rec.update(shape=[P, N, T], table=regime)
+        df[T] = rec
+    main = df[8]
+    main["large"] = df[1 << 17]
+    records.append({"name": "dict_filter", "route": "cuda",
+                    "source": "ballista_tpu_torch/ops/cuda/csrc/dict_filter.cu",
+                    "replaces": "ballista_tpu/ops/tpu/pallas_kernels.py:467",
+                    "max_abs_err": 0.0, **main})
+    return records
 
 
 def kernel_phase(dev, busy_ok: bool) -> dict:
@@ -254,6 +372,20 @@ def compare_answers(dev_tbl, cpu_tbl, q: int) -> None:
             raise AssertionError(f"q{q}: column {name} differs exactly")
 
 
+# per query: the fusion mode the reference reports, the config it runs
+# with, the HashJoinExecs its device stage must hold (None: at least one),
+# and the kernel each of its runs must launch, with the least count
+PATHS = {
+    1: ("fused_xla", {}, 0, None),
+    6: ("fused_xla", {}, 0, None),
+    # requests fused_pallas; the money sums fail the kernel's gate, while
+    # hash_probe still runs for the nation (T=32) and region (T=4) joins
+    5: ("fused_xla", {}, 4, ("hash_probe", 2)),
+    12: ("fused_xla", {"ballista.tpu.fusion.mode": "fused_pallas"}, 1, ("dict_filter", 1)),
+    4: ("fused_pallas", {}, None, ("masked_group_reduce", 1)),
+}
+
+
 def run_query(q: int, data_dir: str, dev, busy_ok: bool) -> dict:
     from ballista_tpu_torch.client.context import SessionContext
     from ballista_tpu_torch.config import BallistaConfig
@@ -272,17 +404,19 @@ def run_query(q: int, data_dir: str, dev, busy_ok: bool) -> dict:
     cpu_tbl = cpu_ctx.sql(sql).collect()
     cpu_s = time.time() - t0
 
-    ctx = SessionContext(BallistaConfig(dict(QUERY_CONFIG)))
+    want, extra_cfg, n_joins, kernel = PATHS[q]
+    ctx = SessionContext(BallistaConfig({**QUERY_CONFIG, **extra_cfg}))
     register_tpch(ctx, data_dir)
     rows = ctx.catalog.get("lineitem").statistics().num_rows or 0
-    launches0 = ck.LAUNCHES["masked_group_reduce"]
-    times, plan_times, runs = [], [], []
+    times, plan_times, runs, run_launches = [], [], [], []
     for i in range(4):  # one warm-up, then best of 3
+        before = dict(ck.LAUNCHES)
         t0 = time.time()
         physical = maybe_compile_tpu(ctx.create_physical_plan(ctx.sql(sql).plan), ctx.config)
         plan_s = time.time() - t0
         tbl = ctx.execute_collect(physical)
         wall = time.time() - t0
+        run_launches.append({k: ck.LAUNCHES[k] - before[k] for k in before})
         stages = [n for n in _walk(physical)
                   if isinstance(n, (TpuStageExec, TpuFinalStageExec))]
         recs = RUN_STATS.stages()
@@ -302,19 +436,24 @@ def run_query(q: int, data_dir: str, dev, busy_ok: bool) -> dict:
         if s.tpu_count < 1 or s.fallback_count != 0:
             raise AssertionError(f"q{q}: {s.node_str()} did not run on the card "
                                  f"(device_runs={s.tpu_count}, fallbacks={s.fallback_count})")
-    launches = ck.LAUNCHES["masked_group_reduce"] - launches0
     cold = runs[0][1][partial[0].fingerprint]
     best = min(range(3), key=lambda k: times[k])
     warm = runs[best + 1][1][partial[0].fingerprint]
     mode = warm.get("fusion_mode")
-    want = {1: "fused_xla", 4: "fused_pallas", 6: "fused_xla"}[q]
     if mode != want:
         raise AssertionError(f"q{q}: fusion_mode {mode!r}, the reference picks {want!r}")
-    if q == 4:
-        if launches < 1:
-            raise AssertionError("q4: masked_group_reduce was never launched")
-        if not any(isinstance(op, HashJoinExec) for op in partial[0].ops):
-            raise AssertionError("q4: the semi-join build was not collected onto the device stage")
+    if q == 5 and warm.get("fusion_reason") != "grouped agg, G=32 fits the kernel family":
+        raise AssertionError(f"q5: fusion_reason {warm.get('fusion_reason')!r}")
+    joins = sum(isinstance(op, HashJoinExec) for op in partial[0].ops)
+    if (joins < 1) if n_joins is None else (joins != n_joins):
+        raise AssertionError(f"q{q}: the device stage holds {joins} joins, "
+                             f"expected {n_joins or 'at least 1'}")
+    if kernel is not None:
+        name, least = kernel
+        per_run = [r[name] for r in run_launches]
+        if min(per_run) < least:
+            raise AssertionError(f"q{q}: {name} launched {per_run} times per run, "
+                                 f"at least {least} expected")
     dt = DEVICE_CACHE.peek(partial[0].scan, dev)
 
     def one_run():
@@ -325,7 +464,11 @@ def run_query(q: int, data_dir: str, dev, busy_ok: bool) -> dict:
     # once: a busy time below that byte floor means dropped events
     busy_floor_ms = (cold.get("device_bytes") or 0) / HBM_BYTES_PER_S * 1e3
     t0 = time.time()
-    busy = device_busy_ms(one_run) if busy_ok else None
+    by_name: dict = {}
+    busy = device_busy_ms(one_run, by_name=by_name) if busy_ok else None
+    # where the traced run's device time went: the six largest event names
+    top_ops = sorted(([n[:80], ms, c] for n, (ms, c) in by_name.items()),
+                     key=lambda r: -r[1])[:6]
     traced_wall = time.time() - t0
     if busy is not None and busy < busy_floor_ms:
         log(f"q{q}: profiler busy {busy:.4f} ms is below the table's byte floor "
@@ -336,13 +479,14 @@ def run_query(q: int, data_dir: str, dev, busy_ok: bool) -> dict:
         "plan_s": plan_times[best],
         "lineitem_rows": rows, "lineitem_rows_per_s": rows / times[best],
         "cold_wall_s": cold_wall, "fill_s": cold.get("fill_s"), "encode_s": cold.get("encode_s"),
-        "upload_s": cold.get("upload_s"), "exec_s": warm.get("exec_s"),
+        "upload_s": cold.get("upload_s"), "build_s": cold.get("build_s"),
+        "warm_build_s": warm.get("build_s"), "exec_s": warm.get("exec_s"),
         "fused_kernel_s": warm.get("fused_kernel_s"),
         "device_bytes": cold.get("device_bytes"), "fusion_mode": mode,
         "fusion_reason": warm.get("fusion_reason"),
         "stage_shape": list(dt.shape) if dt is not None else None,
-        "kernel_launches": launches, "cpu_engine_s": cpu_s,
-        "traced_wall_s": traced_wall, "device_busy_ms": busy,
+        "kernel_launches_per_run": run_launches, "cpu_engine_s": cpu_s,
+        "traced_wall_s": traced_wall, "device_busy_ms": busy, "top_device_ops": top_ops,
         "busy_floor_ms": busy_floor_ms,
         "device_idle_share": None if busy is None else 1.0 - busy / 1e3 / traced_wall,
     }
@@ -399,26 +543,31 @@ def main(argv=None) -> int:
         log(f"kernels built in {build_s:.1f}s")
 
         busy_ok = check_busy_method(dev)
-        krec = kernel_phase(dev, busy_ok)
+        krecs = [kernel_phase(dev, busy_ok)] + gather_phase(dev, busy_ok)
         log(f"kernel phase done at {time.time() - t0:.1f}s")
 
         wait_generate(big, big_dir, args.scale)
         wait_generate(small, q4_dir, args.q4_scale)
         log(f"data ready at {time.time() - t0:.1f}s")
 
-        # the main path: counts start at 0 here and are read just after
-        cuda_kernels.reset_launches()
-        results = [run_query(1, big_dir, dev, busy_ok), run_query(6, big_dir, dev, busy_ok),
-                   run_query(4, q4_dir, dev, busy_ok)]
-        launches = dict(cuda_kernels.LAUNCHES)
-        scales = {"q1": args.scale, "q6": args.scale, "q4": args.q4_scale}
-        for r in results:
-            r["scale"] = scales[r["query"]]
+        # the main paths: the counts are set to 0 just before each query
+        # and read just after it
+        launches = {}
+        for q, path_dir, scale in ((1, big_dir, args.scale), (6, big_dir, args.scale),
+                                   (5, big_dir, args.scale), (12, big_dir, args.scale),
+                                   (4, q4_dir, args.q4_scale)):
+            cuda_kernels.reset_launches()
+            r = run_query(q, path_dir, dev, busy_ok)
+            r["launches"] = launches[q] = dict(cuda_kernels.LAUNCHES)
+            r["scale"] = scale
             r["card"] = card
             print(json.dumps(r), flush=True)
-        krec["launches"] = launches["masked_group_reduce"]
-        if krec["launches"] < 1:
-            raise AssertionError("the main path launched masked_group_reduce no time")
+            log(f"q{q} done at {time.time() - t0:.1f}s")
+        path_of = {"masked_group_reduce": 4, "hash_probe": 5, "dict_filter": 12}
+        for krec in krecs:
+            krec["launches"] = launches[path_of[krec["name"]]][krec["name"]]
+            if krec["launches"] < 1:
+                raise AssertionError(f"the main path launched {krec['name']} no time")
         log(f"path phase done at {time.time() - t0:.1f}s")
     except Exception:  # noqa: BLE001 — every phase failure is fatal
         traceback.print_exc()
@@ -429,7 +578,7 @@ def main(argv=None) -> int:
                 p.kill()
                 p.wait()
 
-    print(json.dumps({"kernels": [krec]}), flush=True)
+    print(json.dumps({"kernels": krecs}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
