@@ -9,11 +9,12 @@ physical plan, produce the executor that runs it. `ballista.executor.engine
 through here; unsupported subtrees keep their CPU operators (per-subtree
 dispatch like execution_engine.rs:124-147).
 
-It claims the shapes the reference's `walk` claims: partial aggregates
-over a Filter/Projection/collected-join chain (TpuStageExec) and
-final-aggregate + ORDER BY stages (TpuFinalStageExec). The standalone
-ORDER BY and window stages stay CPU operators until the sort family is
-ported.
+It claims the shapes the reference's `walk` claims, in its order:
+final-aggregate + ORDER BY stages (TpuFinalStageExec), partial aggregates
+over a Filter/Projection/collected-join chain (TpuStageExec), then, behind
+`ballista.tpu.sort.enabled`, the standalone ORDER BY [LIMIT] stages
+(TpuSortStageExec) and window stages (TpuWindowStageExec) of the sort
+family (ops/cuda/sort_window.py).
 """
 
 from __future__ import annotations
@@ -57,7 +58,15 @@ def maybe_compile_tpu(physical: ExecutionPlan, config: BallistaConfig) -> Execut
     from ballista_tpu_torch.config import TPU_COMPILE_CACHE_DIR
     from ballista_tpu_torch.ops.cuda import runtime
     from ballista_tpu_torch.ops.cuda.final_stage import TpuFinalStageExec, match_final_stage
+    from ballista_tpu_torch.ops.cuda.sort_window import (
+        TpuSortStageExec,
+        TpuWindowStageExec,
+        sort_family_enabled,
+        sort_static_ok,
+        window_static_ok,
+    )
     from ballista_tpu_torch.ops.cuda.stage_compiler import TpuStageExec
+    from ballista_tpu_torch.plan.physical import SortExec, WindowExec
 
     # the kernel build directory (the reference's persistent XLA cache dir)
     cc_dir = str(config.get(TPU_COMPILE_CACHE_DIR) or "")
@@ -65,6 +74,7 @@ def maybe_compile_tpu(physical: ExecutionPlan, config: BallistaConfig) -> Execut
         runtime.init_compile_cache(cc_dir)
 
     physical = _concretize_dynamic_joins(physical)
+    sort_on = sort_family_enabled(config)
 
     def walk(node: ExecutionPlan) -> ExecutionPlan:
         fs = match_final_stage(node)
@@ -90,6 +100,17 @@ def maybe_compile_tpu(physical: ExecutionPlan, config: BallistaConfig) -> Execut
                 pushed = _push_agg_through_union(node)
                 if pushed is not None:
                     return walk(pushed)
+        if (sort_on and isinstance(node, SortExec)
+                and sort_static_ok(node.keys, node.input.df_schema)):
+            # standalone ORDER BY [LIMIT] (final-stage shapes were claimed
+            # above): device permutation, host take — cost model picks the
+            # rung per shape at run time
+            return TpuSortStageExec(walk(node.input), node.keys, node.fetch,
+                                    config)
+        if (sort_on and isinstance(node, WindowExec)
+                and window_static_ok(node.window_exprs, node.input.df_schema)):
+            return TpuWindowStageExec(walk(node.input), node.window_exprs,
+                                      node.df_schema, config)
         kids = node.children()
         if not kids:
             return node

@@ -3,8 +3,9 @@
 Each source under csrc/ is compiled by `nvcc` for sm_90a into its own
 shared library with a plain C interface, at first use, into the kernel
 build directory (runtime.compile_cache_dir(), listed in .gitignore). The
-library's file name carries a hash of its source and the flags, so an
-edited source rebuilds and an unchanged one loads as built. `build_all`
+library's file name carries a hash of its source, the shared headers
+(csrc/*.cuh) and the flags, so an edited source rebuilds and an
+unchanged one loads as built. `build_all`
 starts one nvcc per source together. A build or load error raises:
 nothing falls back.
 """
@@ -23,7 +24,8 @@ from ballista_tpu_torch.ops.cuda import runtime
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("masked_group_reduce", "hash_probe", "dict_filter")
+SOURCES = ("masked_group_reduce", "hash_probe", "dict_filter", "segmented_sort",
+           "topk_select", "segmented_scan")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -41,8 +43,13 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the source and every shared header under csrc/ (bitonic3.cuh)
+    for path in [src] + sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                               if f.endswith(".cuh")):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()
     return src, os.path.join(runtime.compile_cache_dir(), f"lib{name}-{digest[:16]}.so")
 
 

@@ -19,6 +19,17 @@ their C interfaces.
   keep = mask & lut[codes]. Bound: bytes, P*N*(4 + 1) read, P*N written.
   Both gathers stage a small table (up to 48 KB) into shared memory once
   per block and read a larger one through the read-only cache.
+- `segmented_sort` (:284): a per-row ascending sort of [P, N] triples
+  (i64 a, i64 b, i32 pos), N a power of two. Bound: bytes, P*N*20 read
+  and written; a bitonic network over one row of 2^20 lanes is 20 MB,
+  far beyond one block's shared memory, so the row is split across
+  blocks (csrc/bitonic3.cuh).
+- `topk_select` (:351): the k smallest triples per row, in order, by
+  sorting tiles and folding C-lane candidate sets. Bound: bytes, P*N*20
+  read, P*C*20 written.
+- `segmented_scan` (:421): an inclusive segmented sum/min/max per row,
+  reset at boundary lanes, in three passes (tile reduce, carry scan,
+  apply). Bound: bytes, P*N*(itemsize + 1) read, P*N*itemsize written.
 
 Each kernel has one wrapper. On a CPU tensor the wrapper runs the plain
 PyTorch version (the tests' path); on a CUDA tensor it launches the kernel
@@ -36,8 +47,10 @@ import torch
 from ballista_tpu_torch.ops.cuda.kernels import take
 
 MAX_GROUPS = 4096  # the Pallas kernel's multi-tile ceiling (32 x 128 lanes)
+MAX_SORT_LANES = 1 << 20  # absolute ceiling of the sort family; the cost model caps lower
 
-LAUNCHES = {"masked_group_reduce": 0, "hash_probe": 0, "dict_filter": 0}
+LAUNCHES = {"masked_group_reduce": 0, "hash_probe": 0, "dict_filter": 0,
+            "segmented_sort": 0, "topk_select": 0, "segmented_scan": 0}
 _count_lock = threading.Lock()
 
 
@@ -243,3 +256,227 @@ def smem_max_entries(name: str) -> int:
     ones are read through the read-only cache."""
     fn = {"hash_probe": "hp_smem_max_entries", "dict_filter": "df_smem_max_entries"}[name]
     return int(_bind(name, fn, [])())
+
+
+# ---------------------------------------------------------------------------
+# the ORDER BY family: segmented sort, top-k, segmented scan
+
+
+def _check_pow2(name: str, n: int) -> None:
+    if n & (n - 1):
+        raise ValueError(f"{name} needs pow2 lanes, got {n}")
+
+
+def segmented_sort_plain(a, b, pos):
+    """Plain PyTorch form of `segmented_sort`: stable sorts taken least
+    significant operand first (pos, then b, then a). The pos operand makes
+    every real triple unique, so any correct sort gives these values."""
+    a = a.to(torch.int64)
+    b = b.to(torch.int64)
+    p = pos.to(torch.int32)
+    perm = torch.argsort(p, dim=-1, stable=True)
+    for key in (b, a):
+        perm = torch.gather(perm, -1, torch.argsort(torch.gather(key, -1, perm), dim=-1,
+                                                    stable=True))
+    return tuple(torch.gather(t, -1, perm) for t in (a, b, p))
+
+
+def _topk_chunk(k: int, n: int) -> int:
+    """The Pallas kernel's chunk rule: C = min(max(pow2(k), 128), N)."""
+    c = 1
+    while c < max(k, 1):
+        c *= 2
+    return min(max(c, 128), n)
+
+
+def topk_select_plain(a, b, pos, k: int):
+    """Plain PyTorch form of `topk_select`: the first C triples of the
+    sorted row, sliced to k."""
+    c = _topk_chunk(k, a.shape[-1])
+    sa, sb, sp = segmented_sort_plain(a, b, pos)
+    return sa[:, :c][:, :k], sb[:, :c][:, :k], sp[:, :c][:, :k]
+
+
+def _scan_identity(func: str, dtype: torch.dtype):
+    if func == "sum":
+        return 0
+    floating = dtype.is_floating_point
+    if func == "min":
+        return float("inf") if floating else int(torch.iinfo(dtype).max)
+    return float("-inf") if floating else int(torch.iinfo(dtype).min)
+
+
+def xla_maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`jnp.maximum` as XLA computes it: a NaN operand wins (the first
+    one's payload when both are NaN), and +0.0 beats -0.0 in either order
+    (torch.maximum returns its first operand on that tie)."""
+    if not a.dtype.is_floating_point:
+        return torch.maximum(a, b)
+    r = torch.where(b > a, b, a)
+    r = torch.where((a == b) & torch.signbit(a), b, r)
+    return torch.where(torch.isnan(a), a, torch.where(torch.isnan(b), b, r))
+
+
+def xla_minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`jnp.minimum` as XLA computes it: a NaN operand wins, and -0.0
+    beats +0.0 in either order."""
+    if not a.dtype.is_floating_point:
+        return torch.minimum(a, b)
+    r = torch.where(b < a, b, a)
+    r = torch.where((a == b) & ~torch.signbit(a), b, r)
+    return torch.where(torch.isnan(a), a, torch.where(torch.isnan(b), b, r))
+
+
+_SCAN_OPS = {"sum": torch.add, "min": xla_minimum, "max": xla_maximum}
+
+
+def segmented_scan_plain(vals, boundary, func: str):
+    """Plain PyTorch form of `segmented_scan`: the Pallas kernel's
+    Hillis-Steele recursion step for step (identity padding, OR-propagated
+    flags, where(f, v, op(v, pv))), so a float sum equals it bit for bit."""
+    op = _SCAN_OPS[func]
+    v = vals
+    f = boundary.to(torch.bool)
+    P, n = v.shape
+    ident = torch.full((P, 1), _scan_identity(func, v.dtype), dtype=v.dtype, device=v.device)
+    d = 1
+    while d < n:
+        pv = torch.cat([ident.expand(P, d), v[:, :-d]], dim=1)
+        pf = torch.cat([torch.ones((P, d), dtype=torch.bool, device=v.device), f[:, :-d]], dim=1)
+        v = torch.where(f, v, op(v, pv))
+        f = f | pf
+        d *= 2
+    return v
+
+
+def _check_triples(name: str, a, b, pos) -> None:
+    if a.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for {a.device}")
+    if a.dim() != 2 or b.shape != a.shape or pos.shape != a.shape:
+        raise ValueError(f"{name}: a, b and pos must share one [P, N] shape")
+    if b.device != a.device or pos.device != a.device:
+        raise ValueError(f"{name}: inputs on different devices")
+
+
+def _triples(a, b, pos):
+    return (a.to(torch.int64).contiguous(), b.to(torch.int64).contiguous(),
+            pos.to(torch.int32).contiguous())
+
+
+def _empty_triples(P: int, n: int, dev):
+    return (torch.empty((P, n), dtype=torch.int64, device=dev),
+            torch.empty((P, n), dtype=torch.int64, device=dev),
+            torch.empty((P, n), dtype=torch.int32, device=dev))
+
+
+def _ptrs(*ts) -> list:
+    return [t.data_ptr() for t in ts]
+
+
+def segmented_sort(a, b, pos):
+    """Sort each row of [P, N] ascending by the triple (a, b, pos).
+
+    a, b: i64 lanes (b the tiebreak operand); pos: i32 original
+    positions. N must be a power of two; pad with (i64 max, i64 max,
+    i32 max) sentinels, which sort after every real row. Returns the
+    sorted triple; the permutation is the pos output.
+    """
+    P, N = a.shape
+    _check_pow2("segmented_sort", N)
+    if a.device.type == "cpu":
+        return segmented_sort_plain(a, b, pos)
+    _check_triples("segmented_sort", a, b, pos)
+    dev = a.device
+    ins = _triples(a, b, pos)
+    outs = _empty_triples(P, N, dev)
+    if P * N == 0:  # nothing to sort, nothing launched
+        return outs
+    launch = _bind("segmented_sort", "ss_launch",
+                   [_VP] * 6 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _VP])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = launch(*_ptrs(*ins, *outs), P, N, _num_sms(dev), stream)
+    if rc != 0:
+        raise RuntimeError(f"segmented_sort launch failed: CUDA error {rc}")
+    _count("segmented_sort")
+    return outs
+
+
+def topk_select(a, b, pos, k: int):
+    """Per-row k smallest triples of [P, N] lanes, in sorted order: ORDER
+    BY ... LIMIT without the full sort. Same operand contract and sentinel
+    padding as segmented_sort. Returns [P, k] triples (fewer when N < k)."""
+    P, N = a.shape
+    _check_pow2("topk_select", N)
+    if a.device.type == "cpu":
+        return topk_select_plain(a, b, pos, k)
+    _check_triples("topk_select", a, b, pos)
+    dev = a.device
+    c = _topk_chunk(k, N)
+    ins = _triples(a, b, pos)
+    outs = _empty_triples(P, c, dev)
+    if P * N == 0:  # nothing to select, nothing launched
+        return tuple(o[:, :k] for o in outs)
+    # candidate sets between the kernel's passes; a row of C > the tile
+    # (k > 2048) is sorted whole in the first scratch buffer instead
+    tile = min(N, _bind("topk_select", "tk_tile", [])())
+    n_scratch = P * N if c > tile else P * (N // tile) * c
+    s1 = _empty_triples(1, n_scratch, dev)
+    s2 = _empty_triples(1, n_scratch, dev)
+    launch = _bind("topk_select", "tk_launch",
+                   [_VP] * 12 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                                 ctypes.c_int, _VP])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = launch(*_ptrs(*ins, *outs, *s1, *s2), P, N, c, _num_sms(dev), stream)
+    if rc != 0:
+        raise RuntimeError(f"topk_select launch failed: CUDA error {rc}")
+    _count("topk_select")
+    return tuple(o[:, :k] for o in outs)
+
+
+_SCAN_DTYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2, torch.float64: 3}
+_SCAN_FUNCS = {"sum": 0, "min": 1, "max": 2}
+
+
+def segmented_scan(vals, boundary, func: str):
+    """Inclusive segmented sum/min/max over each [P, N] row: the scan
+    resets wherever boundary is True (lane 0 is an implicit boundary).
+    N must be a power of two; pad the tail with boundary=True lanes.
+    Float min/max follow jnp.minimum/jnp.maximum (NaN wins, -0.0 < +0.0)."""
+    P, N = vals.shape
+    _check_pow2("segmented_scan", N)
+    if func not in _SCAN_FUNCS:
+        raise ValueError(f"segmented_scan: unknown func {func!r}")
+    if vals.device.type == "cpu":
+        return segmented_scan_plain(vals, boundary, func)
+    if vals.device.type != "cuda":
+        raise RuntimeError(f"segmented_scan: no kernel for {vals.device}")
+    if vals.dim() != 2 or boundary.shape != vals.shape:
+        raise ValueError("segmented_scan: vals and boundary must share one [P, N] shape")
+    if boundary.device != vals.device:
+        raise ValueError("segmented_scan: inputs on different devices")
+    if vals.dtype not in _SCAN_DTYPES:
+        raise TypeError(f"segmented_scan: no kernel for dtype {vals.dtype}")
+    dev = vals.device
+    v = vals.contiguous()
+    f = boundary.to(torch.bool).contiguous()  # one byte a lane, never widened
+    out = torch.empty_like(v)
+    if P * N == 0:  # nothing to scan, nothing launched
+        return out
+    tile = min(N, _bind("segmented_scan", "sc_tile", [])())
+    n_tiles = P * (N // tile)
+    agg_v = torch.empty(n_tiles, dtype=v.dtype, device=dev)
+    agg_f = torch.empty(n_tiles, dtype=torch.bool, device=dev)
+    carry = torch.empty(n_tiles, dtype=v.dtype, device=dev)
+    launch = _bind("segmented_scan", "sc_launch",
+                   [ctypes.c_int, ctypes.c_int] + [_VP] * 6
+                   + [ctypes.c_longlong, ctypes.c_longlong, _VP])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = launch(_SCAN_DTYPES[v.dtype], _SCAN_FUNCS[func],
+                    *_ptrs(v, f, out, agg_v, agg_f, carry), P, N, stream)
+    if rc != 0:
+        raise RuntimeError(f"segmented_scan launch failed: CUDA error {rc}")
+    _count("segmented_scan")
+    return out

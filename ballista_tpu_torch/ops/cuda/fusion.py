@@ -302,6 +302,59 @@ def estimate_stage(scan, ops, agg, dt, builds) -> StageEstimate:
     )
 
 
+def estimate_sort_stage(n_rows: int, key_meta, fetch=None,
+                        window_funcs: int = 0) -> StageEstimate:
+    """StageEstimate for an ORDER BY / window stage (the device-permutation
+    layout: only key lanes upload; payload columns stay host-side and are
+    gathered by the returned permutation).
+
+    `key_meta` is a sequence of (kind, nullable) per sort key — kind from
+    the lane encoding (i64/date/money/f64/code/bool). Priced per padded
+    lane (pow2 for the bitonic network):
+
+      per key: 8 B transformed i64 + 8 B null-rank tiebreak operand
+               (+ 1 B NaN-disambiguation plane for f64 keys)
+      fixed:   4 B position + 4 B permutation output
+      scans:   per window function, 8 B value lanes + 8 B scan state
+               + 4 B partition-boundary flags + 4 B peer-boundary flags
+               (boundary planes ship as int32 lanes)
+
+    The total lands in table_bytes so `hbm.plan_stage` admits the stage
+    through the same ladder as aggregate stages (no grace rung: sorts
+    have no splittable build side, so over-budget demotes to the CPU
+    engine with the reason recorded)."""
+    key_meta = list(key_meta)
+    lanes = _pow2(max(int(n_rows), 1))
+    per_key = 0
+    for kind, nullable in key_meta:
+        per_key += 8 + 8  # transformed key + tiebreak operand
+        if kind == "f64":
+            per_key += 1
+        if nullable:
+            per_key += 1
+    scratch = lanes * (per_key + 4 + 4)
+    scratch += int(window_funcs) * lanes * (8 + 8 + 4 + 4)
+    return StageEstimate(
+        rows=int(n_rows),
+        partitions=1,
+        group_domain=None,
+        n_group_keys=0,
+        lanes=1,
+        has_mult=False,
+        n_filters=0,
+        n_projections=0,
+        n_joins=0,
+        max_probe_table=0,
+        spans=plan_spans(0, (), None, sort_keys=len(key_meta),
+                         fetch=fetch, window_funcs=window_funcs),
+        table_bytes=scratch,
+        sort_keys=len(key_meta),
+        sort_lanes=lanes,
+        topk_k=int(fetch) if fetch is not None else 0,
+        window_funcs=int(window_funcs),
+    )
+
+
 @dataclass
 class CostModel:
     """Fuse-vs-stage chooser. All inputs are compile-time facts; the
@@ -315,6 +368,8 @@ class CostModel:
     pallas_max_probe: int = 1 << 18
     force_pallas: bool = False  # legacy ballista.tpu.pallas.enabled
     platform: str = "cpu"
+    sort_max_rows: int = 1 << 17  # pallas bitonic lane ceiling (padded)
+    topk_max_k: int = 1024  # above this, ORDER BY...LIMIT full-sorts
 
     @classmethod
     def from_config(cls, config) -> "CostModel":
@@ -325,6 +380,8 @@ class CostModel:
             TPU_FUSION_PALLAS_MAX_GROUPS,
             TPU_FUSION_PALLAS_MAX_PROBE,
             TPU_PALLAS,
+            TPU_SORT_PALLAS_MAX_ROWS,
+            TPU_TOPK_MAX_K,
         )
 
         return cls(
@@ -334,6 +391,8 @@ class CostModel:
             pallas_max_groups=int(config.get(TPU_FUSION_PALLAS_MAX_GROUPS)),
             pallas_max_probe=int(config.get(TPU_FUSION_PALLAS_MAX_PROBE)),
             force_pallas=bool(config.get(TPU_PALLAS)),
+            sort_max_rows=int(config.get(TPU_SORT_PALLAS_MAX_ROWS)),
+            topk_max_k=int(config.get(TPU_TOPK_MAX_K)),
         )
 
     def _pallas_eligible(self, est: StageEstimate) -> bool:
@@ -397,3 +456,44 @@ class CostModel:
         return FusionDecision(
             "fused_xla", "whole-chain XLA fusion (" + "; ".join(why) + ")"
         )
+
+    def _sort_pallas_eligible(self, est: StageEstimate) -> tuple[bool, str]:
+        from ballista_tpu_torch.ops.cuda.cuda_kernels import MAX_SORT_LANES
+
+        cap = min(self.sort_max_rows, MAX_SORT_LANES)
+        if est.sort_lanes > cap:
+            return False, f"{est.sort_lanes} padded lanes > sort ceiling {cap}"
+        if est.topk_k and est.topk_k > self.topk_max_k:
+            return False, (f"fetch {est.topk_k} > topk.max.k {self.topk_max_k}"
+                           " — full sort + slice")
+        if est.topk_k and est.sort_keys > 1:
+            return False, (f"{est.sort_keys} sort keys — the top-k kernel "
+                           "takes one composite key; full sort + slice")
+        return True, ""
+
+    def choose_sort(self, est: StageEstimate) -> FusionDecision:
+        """Mode choice for the ORDER BY / window stage family. Same ladder
+        shape as `choose`: forced knob > disabled→staged > pallas on a
+        CUDA card > fused_xla, every demotion with its reason."""
+        kinds = {s.kind for s in est.spans}
+        what = "window" if WINDOW in kinds else ("topk" if TOPK in kinds else "sort")
+        ok, why = self._sort_pallas_eligible(est)
+        if self.mode in ("staged", "fused_xla", "fused_pallas"):
+            if self.mode == "fused_pallas" and not ok:
+                return FusionDecision(
+                    "fused_xla", f"forced fused_pallas but {why}")
+            return FusionDecision(
+                self.mode, f"forced by ballista.tpu.fusion.mode={self.mode}")
+        if not self.enabled:
+            return FusionDecision(
+                "staged", "fusion disabled; per-pass lax.sort fallback")
+        if (self.platform == "cuda" or self.force_pallas) and ok:
+            return FusionDecision(
+                "fused_pallas",
+                f"{what} stage, {est.sort_lanes} lanes fit the kernel family")
+        parts = [why] if why else []
+        if self.platform != "cuda" and not self.force_pallas:
+            parts.append(f"platform={self.platform}")
+        return FusionDecision(
+            "fused_xla", f"{what} via whole-chain XLA sort ("
+                         + "; ".join(parts) + ")")

@@ -17,6 +17,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    absent keys (table read through the read-only cache), exact (library
    call torch.take); dict_filter at q12's P=8, N=2097152, T=8, and T=4096
    and T=1<<17 (the global-LUT regime), exact (library call torch.take);
+   segmented_sort at the window shape [1, 2^20], at [1, 2^18] and
+   [4, 4096], with ties and padding sentinels, exact (library: two stable
+   torch.sort passes); topk_select at [1, 2^20] with k = 1, 100, 1000 and
+   ties at the cut, exact (library: torch.topk(largest=False), timing
+   only); segmented_scan at [1, 2^20]: i64 sum and max with a boundary
+   about every 15 lanes, f64 max and min over NaN/+-0/+-inf, a row with
+   no boundary, bitwise; f32/f64 sums within rtol 1e-5 / 1e-12 of the
+   segment's sum of |v| (library: unsegmented torch.cumsum / cummax);
 4. generate TPC-H with the port's generator (SF10 for q1/q6/q5/q12, SF1
    for q4, seed 42; reused when a matching manifest exists) and run q1,
    q6, q5 (auto mode), q12 (ballista.tpu.fusion.mode=fused_pallas) and q4
@@ -35,7 +43,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    time, idle share and six largest device ops (torch.profiler, checked
    first against CUDA events on a copy of known size; "null" when
    unchecked);
-5. print one JSON line of kernel numbers, the card line, and last
+5. run the sort family at the same scale with
+   ballista.tpu.sort.pallas.max.rows=1048576, fusion mode auto: win_orders
+   (row_number, rank, count and max over PARTITION BY o_custkey ORDER BY
+   o_orderdate), topk_partsupp (ORDER BY ps_supplycost LIMIT 100) and
+   sort_customer (ORDER BY c_nationkey, c_acctbal DESC) — one warm-up,
+   best of 3, one traced run — checking each answer equal to the port's
+   engine=cpu answer exactly, in row order; every TpuWindowStageExec /
+   TpuSortStageExec on the card for each of its partitions with no
+   fallback; fused_pallas chosen by auto mode; and the launches of every
+   run: 32 segmented_sort + 80 segmented_scan, 8 topk_select, 16
+   segmented_sort;
+6. print one JSON line of kernel numbers, the card line, and last
    {"ok": true, "device": {...}}.
 
 Options: --scale (q1/q6/q5/q12 scale factor, default 10), --q4-scale
@@ -344,6 +363,177 @@ def kernel_phase(dev, busy_ok: bool) -> dict:
     return record
 
 
+def _sort_inputs(P: int, N: int, dev, seed: int, a_hi: int = 1000):
+    """Triples with ties on a and on (a, b), positions 0..N-1 and a tail of
+    (i64 max, i64 max) padding sentinels, as the sort stage pads."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    a = torch.randint(0, a_hi, (P, N), generator=g, dtype=torch.int64)
+    b = torch.randint(0, 3, (P, N), generator=g, dtype=torch.int64)
+    pos = torch.arange(N, dtype=torch.int32).repeat(P, 1)
+    pad = N // 8
+    if pad:
+        a[:, -pad:] = 2**63 - 1
+        b[:, -pad:] = 2**63 - 1
+    return a.to(dev), b.to(dev), pos.to(dev)
+
+
+def _scan_inputs(N: int, dev, seed: int, dtype, p_boundary: float, specials: bool):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    if dtype in (torch.int32, torch.int64):
+        v = rng.integers(-10**6, 10**6, (1, N))
+    else:
+        v = rng.uniform(-100.0, 100.0, (1, N))
+        if specials:
+            for val, share in ((np.nan, 0.01), (0.0, 0.02), (-0.0, 0.02),
+                               (np.inf, 0.005), (-np.inf, 0.005)):
+                v[rng.random((1, N)) < share] = val
+    return (torch.as_tensor(v).to(dtype).to(dev),
+            torch.as_tensor(rng.random((1, N)) < p_boundary).to(dev))
+
+
+def _equal_bits(x, y) -> bool:
+    import torch
+
+    if x.dtype.is_floating_point:
+        bits = torch.int32 if x.element_size() == 4 else torch.int64
+        return torch.equal(x.view(bits), y.view(bits))
+    return torch.equal(x, y)
+
+
+def sort_family_phase(dev, busy_ok: bool) -> list[dict]:
+    """segmented_sort, topk_select and segmented_scan against their plain
+    forms at the sort family's path shapes: exact (float sums within rtol
+    of the segment's sum of |v|), reruns bitwise identical. Returns one
+    timing record per kernel, at the window path's shape."""
+    import math
+
+    import torch
+
+    from ballista_tpu_torch.ops.cuda import cuda_kernels as ck
+
+    records = []
+    sort = {}
+    for P, N in ((1, 1 << 20), (1, 1 << 18), (4, 4096)):
+        a, b, pos = _sort_inputs(P, N, dev, seed=N + P)
+        r1 = ck.segmented_sort(a, b, pos)
+        r2 = ck.segmented_sort(a, b, pos)
+        rp = ck.segmented_sort_plain(a, b, pos)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(r1, r2)):
+            raise AssertionError(f"segmented_sort [{P}, {N}]: two runs differ bitwise")
+        if not all(torch.equal(x, y) for x, y in zip(r1, rp)):
+            raise AssertionError(f"segmented_sort [{P}, {N}]: differs from the plain form")
+        log(f"segmented_sort [{P}, {N}] (ties, 1/8 sentinels): exact, reruns bitwise identical")
+        if P != 1:
+            continue
+
+        def two_pass(a=a, b=b):  # two stable torch.sort passes, b then a
+            i1 = torch.sort(b, dim=-1, stable=True).indices
+            i2 = torch.sort(torch.gather(a, -1, i1), dim=-1, stable=True).indices
+            return torch.gather(i1, -1, i2)
+
+        rec = _timings(lambda a=a, b=b, pos=pos: ck.segmented_sort(a, b, pos),
+                       lambda a=a, b=b, pos=pos: ck.segmented_sort_plain(a, b, pos),
+                       two_pass, busy_ok)
+        # each lane read once and written once (20 B each way); the network's
+        # N/2 * log2 N * (log2 N + 1) / 2 compare-exchanges as operations
+        lg = int(math.log2(N))
+        rec["compare_exchanges"] = P * N // 2 * lg * (lg + 1) // 2
+        rec["bound_ms"], rec["bound_by"] = _bound(P * N * 40, rec["compare_exchanges"])
+        rec["shape"] = [P, N]
+        sort[N] = rec
+        del a, b, pos, r1, r2, rp
+    main = sort[1 << 20]
+    main["also"] = sort[1 << 18]
+    records.append({"name": "segmented_sort", "route": "cuda",
+                    "source": "ballista_tpu_torch/ops/cuda/csrc/segmented_sort.cu",
+                    "replaces": "ballista_tpu/ops/tpu/pallas_kernels.py:284",
+                    "max_abs_err": 0.0, **main})
+
+    N = 1 << 20
+    a, b, pos = _sort_inputs(1, N, dev, seed=5, a_hi=50)  # 50 values: ties at every cut
+    topk = {}
+    for k in (1, 100, 1000):
+        r1 = ck.topk_select(a, b, pos, k)
+        r2 = ck.topk_select(a, b, pos, k)
+        rp = ck.topk_select_plain(a, b, pos, k)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(r1, r2)):
+            raise AssertionError(f"topk_select k={k}: two runs differ bitwise")
+        if not all(x.shape == (1, k) and torch.equal(x, y) for x, y in zip(r1, rp)):
+            raise AssertionError(f"topk_select k={k}: differs from the plain form")
+        log(f"topk_select [1, {N}] k={k} (ties at the cut): exact, reruns bitwise identical")
+        if k != 100:
+            continue
+        rec = _timings(lambda k=k: ck.topk_select(a, b, pos, k),
+                       lambda k=k: ck.topk_select_plain(a, b, pos, k),
+                       lambda k=k: torch.topk(a, k, dim=-1, largest=False), busy_ok)
+        # the row read once (20 B a lane), k triples written; one compare a lane
+        rec["bound_ms"], rec["bound_by"] = _bound(N * 20 + k * 20, N)
+        rec.update(shape=[1, N], k=k)
+        topk[k] = rec
+    del a, b, pos
+    records.append({"name": "topk_select", "route": "cuda",
+                    "source": "ballista_tpu_torch/ops/cuda/csrc/topk_select.cu",
+                    "replaces": "ballista_tpu/ops/tpu/pallas_kernels.py:351",
+                    "max_abs_err": 0.0, **topk[100]})
+
+    scan = {}
+    sum_err = {}
+    cases = [(torch.int64, "sum", 1 / 15, False), (torch.int64, "max", 1 / 15, False),
+             (torch.int64, "sum", 0.0, False), (torch.float64, "max", 1 / 15, True),
+             (torch.float64, "min", 1 / 15, True), (torch.float64, "max", 0.0, True),
+             (torch.float32, "sum", 1 / 15, False), (torch.float64, "sum", 1 / 15, False),
+             (torch.float32, "sum", 0.0, False), (torch.float64, "sum", 0.0, False)]
+    for i, (dtype, func, p_b, specials) in enumerate(cases):
+        v, f = _scan_inputs(N, dev, 30 + i, dtype, p_b, specials)
+        r1 = ck.segmented_scan(v, f, func)
+        r2 = ck.segmented_scan(v, f, func)
+        rp = ck.segmented_scan_plain(v, f, func)
+        torch.cuda.synchronize()
+        what = f"segmented_scan {str(dtype)[6:]} {func} boundary share {p_b:.4f}"
+        if not _equal_bits(r1, r2):
+            raise AssertionError(f"{what}: two runs differ bitwise")
+        if func == "sum" and dtype.is_floating_point:
+            rtol = 1e-5 if dtype == torch.float32 else 1e-12
+            scale = ck.segmented_scan_plain(v.abs(), f, "sum")
+            err = (r1 - rp).abs()
+            if not bool((err <= rtol * scale).all()):
+                raise AssertionError(f"{what}: beyond rtol {rtol} of the segment's sum of |v|")
+            sum_err[f"{str(dtype)[6:]} boundary share {p_b:.4f}"] = float(err.max())
+            log(f"{what}: max_abs_err={float(err.max()):.3e} within rtol {rtol} "
+                "of the segment's sum of |v|, reruns bitwise identical")
+        else:
+            if not _equal_bits(r1, rp):
+                raise AssertionError(f"{what}: differs from the plain form")
+            log(f"{what}{' (NaN, +-0, +-inf)' if specials else ''}: bitwise equal, "
+                "reruns bitwise identical")
+        if (dtype, func, p_b) in ((torch.int64, "sum", 1 / 15), (torch.float64, "max", 1 / 15)):
+            library = ((lambda v=v: torch.cumsum(v, dim=1)) if func == "sum"
+                       else (lambda v=v: torch.cummax(v, dim=1)))
+            rec = _timings(lambda v=v, f=f, func=func: ck.segmented_scan(v, f, func),
+                           lambda v=v, f=f, func=func: ck.segmented_scan_plain(v, f, func),
+                           library, busy_ok)
+            # value (8 B) and flag (1 B) read, value (8 B) written; one op a lane
+            rec["bound_ms"], rec["bound_by"] = _bound(N * 17, N)
+            rec.update(shape=[1, N], dtype=str(dtype)[6:], func=func)
+            scan[(dtype, func)] = rec
+        del v, f, r1, r2, rp
+    main = scan[(torch.int64, "sum")]
+    main["also"] = scan[(torch.float64, "max")]
+    main["float_sum_max_abs_err"] = sum_err
+    records.append({"name": "segmented_scan", "route": "cuda",
+                    "source": "ballista_tpu_torch/ops/cuda/csrc/segmented_scan.cu",
+                    "replaces": "ballista_tpu/ops/tpu/pallas_kernels.py:421",
+                    "max_abs_err": 0.0, **main})
+    return records
+
+
 # ---------------------------------------------------------------- path
 
 def _walk(node):
@@ -492,6 +682,114 @@ def run_query(q: int, data_dir: str, dev, busy_ok: bool) -> dict:
     }
 
 
+# the sort family's queries, with the kernel launches each run must make
+# (8 files per table, 16 shuffle partitions): win_orders has 16 window
+# stages of two LSD sort passes and five scans each, topk_partsupp one
+# top-k per file partition, sort_customer two passes per file partition
+SORT_QUERIES = {
+    "win_orders": (
+        "SELECT o_orderkey, o_custkey, o_orderdate, o_totalprice, "
+        "row_number() OVER (PARTITION BY o_custkey ORDER BY o_orderdate) AS rn, "
+        "rank() OVER (PARTITION BY o_custkey ORDER BY o_orderdate) AS rk, "
+        "count(*) OVER (PARTITION BY o_custkey ORDER BY o_orderdate) AS cnt, "
+        "max(o_totalprice) OVER (PARTITION BY o_custkey ORDER BY o_orderdate) AS mx "
+        "FROM orders",
+        {"segmented_sort": 32, "topk_select": 0, "segmented_scan": 80}),
+    "topk_partsupp": (
+        "SELECT ps_partkey, ps_suppkey, ps_supplycost, ps_availqty FROM partsupp "
+        "ORDER BY ps_supplycost LIMIT 100",
+        {"segmented_sort": 0, "topk_select": 8, "segmented_scan": 0}),
+    "sort_customer": (
+        "SELECT c_custkey, c_name, c_nationkey, c_acctbal FROM customer "
+        "ORDER BY c_nationkey, c_acctbal DESC",
+        {"segmented_sort": 16, "topk_select": 0, "segmented_scan": 0}),
+}
+SORT_CONFIG = {**QUERY_CONFIG, "ballista.tpu.sort.pallas.max.rows": 1 << 20}
+
+
+def run_sort_query(name: str, data_dir: str, dev, busy_ok: bool) -> dict:
+    from ballista_tpu_torch.client.context import SessionContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.engine.cuda_engine import maybe_compile_tpu
+    from ballista_tpu_torch.ops.cuda import cuda_kernels as ck
+    from ballista_tpu_torch.ops.cuda.sort_window import TpuSortStageExec, TpuWindowStageExec
+    from ballista_tpu_torch.ops.cuda.stage_compiler import RUN_STATS
+    from ballista_tpu_torch.testing.tpchgen import register_tpch
+
+    sql, want_launches = SORT_QUERIES[name]
+    cpu_ctx = SessionContext(BallistaConfig({"ballista.executor.engine": "cpu"}))
+    register_tpch(cpu_ctx, data_dir)
+    t0 = time.time()
+    cpu_tbl = cpu_ctx.sql(sql).collect()
+    cpu_s = time.time() - t0
+    del cpu_ctx
+
+    ctx = SessionContext(BallistaConfig(dict(SORT_CONFIG)))
+    register_tpch(ctx, data_dir)
+    times, plan_times, kernel_s, run_launches, modes = [], [], [], [], []
+    for i in range(4):  # one warm-up, then best of 3
+        ck.reset_launches()
+        k0 = RUN_STATS.snapshot().get("sort_kernel_s", 0.0)
+        t0 = time.time()
+        physical = maybe_compile_tpu(ctx.create_physical_plan(ctx.sql(sql).plan), ctx.config)
+        plan_s = time.time() - t0
+        tbl = ctx.execute_collect(physical)
+        wall = time.time() - t0
+        run_launches.append(dict(ck.LAUNCHES))
+        stats = RUN_STATS.snapshot()
+        kernel_s.append(stats.get("sort_kernel_s", 0.0) - k0)
+        modes.append((stats.get("fusion_mode"), stats.get("fusion_reason")))
+        stages = [n for n in _walk(physical)
+                  if isinstance(n, (TpuSortStageExec, TpuWindowStageExec))]
+        if not stages:
+            raise AssertionError(f"{name}: no sort or window stage was claimed")
+        for st in stages:
+            if st.tpu_count != st.output_partition_count() or st.fallback_count != 0:
+                raise AssertionError(
+                    f"{name}: {st.node_str()} ran {st.tpu_count} of "
+                    f"{st.output_partition_count()} partitions on the card, "
+                    f"{st.fallback_count} on the CPU")
+        if not tbl.equals(cpu_tbl):
+            raise AssertionError(f"{name}: the answer differs from the CPU engine's")
+        got = {k: run_launches[-1][k] for k in want_launches}
+        if got != want_launches:
+            raise AssertionError(f"{name}: launches {got}, expected {want_launches}")
+        if modes[-1][0] != "fused_pallas":
+            raise AssertionError(f"{name}: auto mode chose {modes[-1]}, expected fused_pallas")
+        if i:
+            times.append(wall)
+            plan_times.append(plan_s)
+        else:
+            cold_wall = wall
+    log(f"{name}: equal to the CPU engine in row order, {len(stages)} stage(s) x "
+        f"{stages[0].output_partition_count()} partitions on the card, "
+        f"fused_pallas ({modes[-1][1]}), launches per run {got}")
+    best = min(range(3), key=lambda k: times[k])
+
+    def one_run():
+        physical = maybe_compile_tpu(ctx.create_physical_plan(ctx.sql(sql).plan), ctx.config)
+        ctx.execute_collect(physical)
+
+    t0 = time.time()
+    by_name: dict = {}
+    ck.reset_launches()
+    busy = device_busy_ms(one_run, by_name=by_name) if busy_ok else None
+    traced_wall = time.time() - t0
+    traced_launches = dict(ck.LAUNCHES)
+    top_ops = sorted(([n[:80], ms, c] for n, (ms, c) in by_name.items()),
+                     key=lambda r: -r[1])[:6]
+    return {
+        "query": name, "wall_s": times[best], "times_s": times, "plan_s": plan_times[best],
+        "cold_wall_s": cold_wall, "sort_kernel_s": kernel_s[best + 1],
+        "sort_kernel_s_runs": kernel_s, "rows_out": cpu_tbl.num_rows,
+        "fusion_mode": modes[best + 1][0], "fusion_reason": modes[best + 1][1],
+        "kernel_launches_per_run": run_launches, "traced_launches": traced_launches,
+        "cpu_engine_s": cpu_s, "traced_wall_s": traced_wall, "device_busy_ms": busy,
+        "top_device_ops": top_ops,
+        "device_idle_share": None if busy is None else 1.0 - busy / 1e3 / traced_wall,
+    }
+
+
 def _tag(stage) -> str:
     import zlib
 
@@ -543,7 +841,8 @@ def main(argv=None) -> int:
         log(f"kernels built in {build_s:.1f}s")
 
         busy_ok = check_busy_method(dev)
-        krecs = [kernel_phase(dev, busy_ok)] + gather_phase(dev, busy_ok)
+        krecs = ([kernel_phase(dev, busy_ok)] + gather_phase(dev, busy_ok)
+                 + sort_family_phase(dev, busy_ok))
         log(f"kernel phase done at {time.time() - t0:.1f}s")
 
         wait_generate(big, big_dir, args.scale)
@@ -563,9 +862,23 @@ def main(argv=None) -> int:
             r["card"] = card
             print(json.dumps(r), flush=True)
             log(f"q{q} done at {time.time() - t0:.1f}s")
-        path_of = {"masked_group_reduce": 4, "hash_probe": 5, "dict_filter": 12}
+        # the sort family, same data; counts set to 0 just before each run
+        for name in SORT_QUERIES:
+            cuda_kernels.reset_launches()
+            r = run_sort_query(name, big_dir, dev, busy_ok)
+            # every run's launches, the traced run's included
+            r["launches"] = launches[name] = {
+                k: sum(run[k] for run in r["kernel_launches_per_run"]) + r["traced_launches"][k]
+                for k in cuda_kernels.LAUNCHES}
+            r["scale"] = args.scale
+            r["card"] = card
+            print(json.dumps(r), flush=True)
+            log(f"{name} done at {time.time() - t0:.1f}s")
+        path_of = {"masked_group_reduce": (4,), "hash_probe": (5,), "dict_filter": (12,),
+                   "segmented_sort": ("win_orders", "sort_customer"),
+                   "topk_select": ("topk_partsupp",), "segmented_scan": ("win_orders",)}
         for krec in krecs:
-            krec["launches"] = launches[path_of[krec["name"]]][krec["name"]]
+            krec["launches"] = sum(launches[q][krec["name"]] for q in path_of[krec["name"]])
             if krec["launches"] < 1:
                 raise AssertionError(f"the main path launched {krec['name']} no time")
         log(f"path phase done at {time.time() - t0:.1f}s")

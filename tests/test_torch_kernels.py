@@ -6,6 +6,13 @@ port's wrapper, given CPU tensors, runs its plain PyTorch form.
 masked_group_reduce: counts must match exactly, f32 sums within rtol 1e-4 /
 atol 1e-4, the JAX package's own bound for this kernel
 (tests/test_fusion.py). hash_probe and dict_filter are gathers: exact.
+segmented_sort and topk_select: exact (the pos operand makes the sorted
+order unique). segmented_scan: bitwise for ints, min and max, and for
+float sums too, because the plain form repeats the Pallas kernel's
+Hillis-Steele steps; on the card the kernel's float sums associate
+differently and agree within rtol times the segment's sum of |v| (the
+classical bound of a summation's rounding), rtol 1e-5 (f32) / 1e-12
+(f64).
 Tests of the hand-written CUDA kernels themselves need the card: they
 carry the `gpu` marker and skip elsewhere.
 """
@@ -351,3 +358,197 @@ def test_cuda_dict_filter_matches_plain_form(T):
     kp = ck.dict_filter_plain(codes, lut, mask)
     torch.cuda.synchronize()
     assert torch.equal(k1, k2) and torch.equal(k1, kp)
+
+
+# ---------------------------------------------------------------------------
+# the ORDER BY family: segmented_sort, topk_select, segmented_scan
+
+_I64_MAX = np.iinfo(np.int64).max
+_I32_MAX = np.iinfo(np.int32).max
+
+
+def _sort_inputs(seed, P, N, a_hi=6, b_hi=3, pad=0.125):
+    """Triples with ties on a and on (a, b), unique positions, and a tail of
+    (i64 max, i64 max, i32 max) padding sentinels."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(-a_hi, a_hi, (P, N)).astype(np.int64)
+    b = rng.integers(0, b_hi, (P, N)).astype(np.int64)
+    pos = np.stack([rng.permutation(N) for _ in range(P)]).astype(np.int32)
+    n_pad = int(N * pad)
+    if n_pad:
+        a[:, -n_pad:] = _I64_MAX
+        b[:, -n_pad:] = _I64_MAX
+        pos[:, -n_pad:] = _I32_MAX
+    return a, b, pos
+
+
+def _assert_triples_equal(got, want):
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        g = g.numpy()
+        assert g.shape == w.shape and g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("P", [1, 3])
+@pytest.mark.parametrize("N", [1, 64, 1024])
+def test_segmented_sort_matches_pallas(P, N):
+    from ballista_tpu.ops.tpu.pallas_kernels import segmented_sort as jax_sort
+
+    a, b, pos = _sort_inputs(P * 100 + N, P, N)
+    want = jax_sort(a, b, pos)
+    got = ck.segmented_sort(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(pos))
+    _assert_triples_equal(got, want)
+
+
+@pytest.mark.parametrize("k", [1, 5, 128, 200])
+def test_topk_select_matches_pallas(k):
+    # 1024 lanes in 8 runs of equal (a, b): every cut falls inside a tie,
+    # which only the position operand breaks
+    from ballista_tpu.ops.tpu.pallas_kernels import topk_select as jax_topk
+
+    rng = np.random.default_rng(k)
+    P, N = 2, 1024
+    a = rng.integers(0, 8, (P, N)).astype(np.int64)
+    b = np.zeros((P, N), np.int64)
+    pos = np.tile(np.arange(N, dtype=np.int32), (P, 1))
+    a[:, -64:] = _I64_MAX  # padding
+    b[:, -64:] = _I64_MAX
+    want = jax_topk(a, b, pos, k)
+    got = ck.topk_select(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(pos), k)
+    assert got[0].shape == (P, k)
+    _assert_triples_equal(got, want)
+
+
+def _scan_inputs(seed, dtype, func, P=2, N=256, p_boundary=0.15):
+    rng = np.random.default_rng(seed)
+    if np.issubdtype(dtype, np.floating):
+        v = (rng.uniform(-50, 50, (P, N)) / 3.0).astype(dtype)
+        if func != "sum":
+            v[rng.random((P, N)) < 0.05] = np.nan
+            v[rng.random((P, N)) < 0.08] = 0.0
+            v[rng.random((P, N)) < 0.08] = -0.0
+            v[rng.random((P, N)) < 0.03] = np.inf
+            v[rng.random((P, N)) < 0.03] = -np.inf
+    else:
+        v = rng.integers(-1000, 1000, (P, N)).astype(dtype)
+    f = rng.random((P, N)) < p_boundary
+    return v, f
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64, np.float32, np.float64],
+                         ids=["i32", "i64", "f32", "f64"])
+@pytest.mark.parametrize("func", ["sum", "min", "max"])
+def test_segmented_scan_matches_pallas(func, dtype):
+    # bit for bit in every case, NaN payloads and zero signs included
+    from ballista_tpu.ops.tpu.pallas_kernels import segmented_scan as jax_scan
+
+    v, f = _scan_inputs(len(func) * 10 + np.dtype(dtype).itemsize, dtype, func)
+    want = np.asarray(jax_scan(v, f, func))
+    got = ck.segmented_scan(torch.from_numpy(v), torch.from_numpy(f), func).numpy()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    bits = np.int32 if want.itemsize == 4 else np.int64
+    np.testing.assert_array_equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.parametrize("fn", ["maximum", "minimum"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+def test_xla_min_max_follow_jnp(fn, dtype):
+    # the scan's float min/max: NaN wins, -0.0 < +0.0 in either order
+    import jax.numpy as jnp
+
+    vals = np.array([0.0, -0.0, 1.0, -1.0, np.inf, -np.inf, np.nan], dtype)
+    a, b = (x.ravel() for x in np.meshgrid(vals, vals))
+    want = np.asarray(getattr(jnp, fn)(a, b))
+    got = getattr(ck, f"xla_{fn}")(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    bits = np.int32 if want.itemsize == 4 else np.int64
+    np.testing.assert_array_equal(got.view(bits), want.view(bits))
+
+
+def test_sort_family_needs_pow2_lanes():
+    from ballista_tpu.ops.tpu import pallas_kernels as jpk
+
+    a = np.zeros((1, 6), np.int64)
+    p = np.arange(6, dtype=np.int32)[None]
+    ta, tp = torch.from_numpy(a), torch.from_numpy(p)
+    for jfn, tfn in ((lambda: jpk.segmented_sort(a, a, p), lambda: ck.segmented_sort(ta, ta, tp)),
+                     (lambda: jpk.topk_select(a, a, p, 2), lambda: ck.topk_select(ta, ta, tp, 2)),
+                     (lambda: jpk.segmented_scan(a, a != 0, "sum"),
+                      lambda: ck.segmented_scan(ta, ta != 0, "sum"))):
+        with pytest.raises(ValueError, match="pow2"):
+            jfn()
+        with pytest.raises(ValueError, match="pow2"):
+            tfn()
+    assert ck.MAX_SORT_LANES == jpk.MAX_SORT_LANES
+
+
+def test_sort_family_wrappers_count_only_kernel_launches():
+    ck.reset_launches()
+    a, b, pos = (torch.from_numpy(x) for x in _sort_inputs(3, 2, 64))
+    ck.segmented_sort(a, b, pos)
+    ck.topk_select(a, b, pos, 3)
+    ck.segmented_scan(a, b > 0, "max")
+    assert all(ck.LAUNCHES[k] == 0
+               for k in ("segmented_sort", "topk_select", "segmented_scan"))
+
+
+def _on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,N", [(1, 1 << 20), (1, 1 << 18), (4, 4096), (3, 1)])
+def test_cuda_segmented_sort_matches_plain_form(P, N):
+    dev = _on_card()
+    a, b, pos = (torch.from_numpy(x).to(dev) for x in _sort_inputs(9, P, N, a_hi=1000))
+    r1 = ck.segmented_sort(a, b, pos)
+    r2 = ck.segmented_sort(a, b, pos)
+    rp = ck.segmented_sort_plain(a, b, pos)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) and torch.equal(x, z) for x, y, z in zip(r1, r2, rp))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 100, 1000, 3000])
+def test_cuda_topk_select_matches_plain_form(k):
+    dev = _on_card()
+    a, b, pos = (torch.from_numpy(x).to(dev) for x in _sort_inputs(k, 1, 1 << 20, a_hi=50))
+    r1 = ck.topk_select(a, b, pos, k)
+    rp = ck.topk_select_plain(a, b, pos, k)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, z) for x, z in zip(r1, rp))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.int64, np.float32, np.float64], ids=["i64", "f32", "f64"])
+@pytest.mark.parametrize("func", ["sum", "min", "max"])
+def test_cuda_segmented_scan_matches_plain_form(func, dtype):
+    dev = _on_card()
+    for p_boundary in (1 / 15, 0.0):
+        v, f = (torch.from_numpy(x).to(dev)
+                for x in _scan_inputs(5, dtype, func, P=1, N=1 << 20, p_boundary=p_boundary))
+        got = ck.segmented_scan(v, f, func)
+        want = ck.segmented_scan_plain(v, f, func)
+        torch.cuda.synchronize()
+        if func == "sum" and v.dtype.is_floating_point:
+            rtol = 1e-5 if v.dtype == torch.float32 else 1e-12
+            scale = ck.segmented_scan_plain(v.abs(), f, "sum")
+            assert bool(((got - want).abs() <= rtol * scale).all())
+        else:
+            bits = torch.int32 if v.element_size() == 4 else torch.int64
+            assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.parametrize("name", ["segmented_sort", "topk_select", "segmented_scan"])
+def test_sort_family_wrapper_never_falls_back_to_the_plain_form(name):
+    # a tensor on a device with no kernel raises instead of quietly taking
+    # the plain path (only CPU tensors take it)
+    meta = torch.zeros((1, 8), dtype=torch.int64, device="meta")
+    pos = meta.to(torch.int32)
+    call = {"segmented_sort": lambda: ck.segmented_sort(meta, meta, pos),
+            "topk_select": lambda: ck.topk_select(meta, meta, pos, 2),
+            "segmented_scan": lambda: ck.segmented_scan(meta, meta.to(torch.bool), "max")}[name]
+    with pytest.raises(RuntimeError, match="no kernel"):
+        call()
