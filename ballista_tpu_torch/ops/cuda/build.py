@@ -44,7 +44,7 @@ def _nvcc() -> str:
 def _target(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC, f"{name}.cu")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    # the source and every shared header under csrc/ (bitonic3.cuh)
+    # the source and every shared header under csrc/ (bitonic3.cuh, mergesort3.cuh)
     for path in [src] + sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
                                if f.endswith(".cuh")):
         with open(path, "rb") as f:

@@ -13,28 +13,32 @@
 // output is the one sorted order, equal to the plain PyTorch form's.
 //
 // Bound: bytes. Each lane is read once (20 B) and written once (20 B):
-// 41.9 MB at [1, 2^20], 0.0125 ms at 3.35 TB/s. The network does
-// N/2 * log2(N) * (log2(N) + 1) / 2 compare-exchanges (1.1e8 at 2^20), each
-// a few integer compares, far below the card's integer rate: what costs is
-// the traffic of the passes that cannot stay in shared memory.
+// 41.9 MB at [1, 2^20], 0.0125 ms at 3.35 TB/s. A comparison sort needs
+// at least N log2 N compares (2.1e7 at 2^20), each a few integer
+// compares, far below the card's integer rate: what costs is the traffic
+// of the passes over a row that does not fit a block.
 //
-// Design (bitonic3.cuh): the row is split into 2048-lane tiles. One launch
-// sorts every tile in shared memory; then for each merge size k above the
-// tile, one global pass per partner distance j >= 2048 and one launch that
-// finishes the passes j < 2048 in shared memory. 55 launches at 2^20, each
-// over the 20 MB row, which the 50 MB L2 can hold. Deterministic: no
-// atomics, the same passes in the same order on every run.
+// Design (mergesort3.cuh): one launch sorts every 2048-lane tile in shared
+// memory, then log2(N / 2048) merge-path passes each merge pairs of runs,
+// reading and writing the row once: 10 launches at 2^20. The 20 MB row
+// and its scratch copy fit the 50 MB L2 together. Deterministic: no atomics, the same passes in
+// the same order on every run.
 //
 // The C interface (no PyTorch headers) is loaded with ctypes; the launch
 // function returns cudaGetLastError() so a refused launch is reported.
 
-#include "bitonic3.cuh"
+#include "mergesort3.cuh"
 
-// a, b i64 [P, N], pos i32 [P, N] in; oa, ob i64 and op i32 [P, N] out, all
-// contiguous. N a power of two.
+// The lanes the tile pass sorts in shared memory.
+extern "C" int ss_tile() { return mergesort3::kTile; }
+
+// a, b i64 [P, N], pos i32 [P, N] in; oa, ob i64 and op i32 [P, N] out;
+// sa, sb, sp a scratch triple of [P, N] (unused, may be null, when N <=
+// ss_tile()); all contiguous. N a power of two.
 extern "C" int ss_launch(const long long* a, const long long* b, const int* pos,
-                         long long* oa, long long* ob, int* op, long long rows,
-                         long long n, int num_sms, void* stream) {
-  return bitonic3::sort_rows(a, b, pos, oa, ob, op, rows, n, num_sms,
-                             static_cast<cudaStream_t>(stream));
+                         long long* oa, long long* ob, int* op, long long* sa,
+                         long long* sb, int* sp, long long rows, long long n,
+                         void* stream) {
+  return mergesort3::sort_rows(a, b, pos, oa, ob, op, sa, sb, sp, rows, n,
+                               static_cast<cudaStream_t>(stream));
 }

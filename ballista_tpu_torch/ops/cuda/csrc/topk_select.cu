@@ -25,13 +25,14 @@
 //      launches at 2^20 with C = 128).
 // The row is read from device memory once; the candidate sets are 1/16 of
 // it at C = 128. A C above the tile (k > 2048) sorts the rows whole with
-// the segmented_sort network into scratch and keeps the first C lanes.
+// segmented_sort's merge sort (mergesort3.cuh) into scratch and keeps the
+// first C lanes.
 // Deterministic: no atomics.
 //
 // The C interface (no PyTorch headers) is loaded with ctypes; the launch
 // function returns cudaGetLastError() so a refused launch is reported.
 
-#include "bitonic3.cuh"
+#include "mergesort3.cuh"
 
 namespace {
 
@@ -119,18 +120,17 @@ extern "C" int tk_tile() { return kTile; }
 
 // a, b i64 [P, N], pos i32 [P, N] in; oa, ob i64 and op i32 [P, C] out; two
 // scratch triples s1 and s2 of P * (N / min(N, tile)) * C lanes each, or,
-// when C > the tile, s1 of P * N lanes. All contiguous; N and C powers of
-// two with C <= N.
+// when C > the tile, of P * N lanes each (the sort's output and its
+// scratch). All contiguous; N and C powers of two with C <= N.
 extern "C" int tk_launch(const long long* a, const long long* b, const int* pos,
                          long long* oa, long long* ob, int* op,
                          long long* s1a, long long* s1b, int* s1p,
                          long long* s2a, long long* s2b, int* s2p,
-                         long long rows, long long n, int c, int num_sms,
-                         void* stream) {
+                         long long rows, long long n, int c, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows <= 0 || n <= 0 || c <= 0) return 0;
   if (c > kTile) {
-    int err = bitonic3::sort_rows(a, b, pos, s1a, s1b, s1p, rows, n, num_sms, s);
+    int err = mergesort3::sort_rows(a, b, pos, s1a, s1b, s1p, s2a, s2b, s2p, rows, n, s);
     if (err) return err;
     // the first C lanes of every row
     const size_t w8 = (size_t)c * 8, w4 = (size_t)c * 4;
@@ -145,7 +145,7 @@ extern "C" int tk_launch(const long long* a, const long long* b, const int* pos,
   long long* cb = sets == 1 ? ob : s1b;
   int* cp = sets == 1 ? op : s1p;
   bitonic3::tile_kernel<<<(unsigned)(rows * sets), kThreads, 0, s>>>(
-      a, b, pos, ca, cb, cp, n, t, 2, t, c, true);
+      a, b, pos, ca, cb, cp, n, t, c);
   int err = (int)cudaGetLastError();
   if (err) return err;
   long long* na = s2a;

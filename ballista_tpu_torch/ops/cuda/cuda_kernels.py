@@ -21,15 +21,18 @@ their C interfaces.
   per block and read a larger one through the read-only cache.
 - `segmented_sort` (:284): a per-row ascending sort of [P, N] triples
   (i64 a, i64 b, i32 pos), N a power of two. Bound: bytes, P*N*20 read
-  and written; a bitonic network over one row of 2^20 lanes is 20 MB,
-  far beyond one block's shared memory, so the row is split across
-  blocks (csrc/bitonic3.cuh).
+  and written; one row of 2^20 lanes is 20 MB, far beyond one block's
+  shared memory, so 2048-lane tiles are sorted in shared memory and
+  merged pairwise by merge-path passes (csrc/mergesort3.cuh): 10 launches
+  at 2^20, each over the row once.
 - `topk_select` (:351): the k smallest triples per row, in order, by
   sorting tiles and folding C-lane candidate sets. Bound: bytes, P*N*20
   read, P*C*20 written.
 - `segmented_scan` (:421): an inclusive segmented sum/min/max per row,
-  reset at boundary lanes, in three passes (tile reduce, carry scan,
-  apply). Bound: bytes, P*N*(itemsize + 1) read, P*N*itemsize written.
+  reset at boundary lanes, in one launch that reads and writes every lane
+  once: each tile publishes its aggregate and looks back over its
+  predecessors' aggregates in a fixed order. Bound: bytes,
+  P*N*(itemsize + 1) read, P*N*itemsize written.
 
 Each kernel has one wrapper. On a CPU tensor the wrapper runs the plain
 PyTorch version (the tests' path); on a CUDA tensor it launches the kernel
@@ -281,6 +284,20 @@ def segmented_sort_plain(a, b, pos):
     return tuple(torch.gather(t, -1, perm) for t in (a, b, p))
 
 
+SORT_TILE = 2048  # lanes the sort's tile pass sorts in shared memory (ss_tile())
+
+
+def sort_plan(n: int, tile: int = SORT_TILE) -> tuple[int, int, bool]:
+    """How the kernel sorts rows of n lanes (n a power of two): (tile
+    lanes, merge passes, whether the tile pass writes the output itself).
+    The passes ping-pong between the output and one scratch triple, so the
+    tile pass starts in the output when the merge passes are even in
+    number and the last pass lands there; launches = 1 + merge passes."""
+    t = min(n, tile)
+    passes = (n // t).bit_length() - 1
+    return t, passes, passes % 2 == 0
+
+
 def _topk_chunk(k: int, n: int) -> int:
     """The Pallas kernel's chunk rule: C = min(max(pow2(k), 128), N)."""
     c = 1
@@ -391,11 +408,15 @@ def segmented_sort(a, b, pos):
     outs = _empty_triples(P, N, dev)
     if P * N == 0:  # nothing to sort, nothing launched
         return outs
+    _, passes, _ = sort_plan(N, _bind("segmented_sort", "ss_tile", [])())
+    # held until the launch is enqueued: freed earlier, another thread's
+    # allocation on the stream could take the memory before the kernel runs
+    scratch = _empty_triples(P, N, dev) if passes else ()
     launch = _bind("segmented_sort", "ss_launch",
-                   [_VP] * 6 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _VP])
+                   [_VP] * 9 + [ctypes.c_longlong, ctypes.c_longlong, _VP])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(*_ptrs(*ins, *outs), P, N, _num_sms(dev), stream)
+        rc = launch(*_ptrs(*ins, *outs), *(_ptrs(*scratch) or [None] * 3), P, N, stream)
     if rc != 0:
         raise RuntimeError(f"segmented_sort launch failed: CUDA error {rc}")
     _count("segmented_sort")
@@ -418,17 +439,17 @@ def topk_select(a, b, pos, k: int):
     if P * N == 0:  # nothing to select, nothing launched
         return tuple(o[:, :k] for o in outs)
     # candidate sets between the kernel's passes; a row of C > the tile
-    # (k > 2048) is sorted whole in the first scratch buffer instead
+    # (k > 2048) is sorted whole instead, into the first scratch triple
+    # with the second as the sort's own scratch
     tile = min(N, _bind("topk_select", "tk_tile", [])())
     n_scratch = P * N if c > tile else P * (N // tile) * c
     s1 = _empty_triples(1, n_scratch, dev)
     s2 = _empty_triples(1, n_scratch, dev)
     launch = _bind("topk_select", "tk_launch",
-                   [_VP] * 12 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                                 ctypes.c_int, _VP])
+                   [_VP] * 12 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _VP])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(*_ptrs(*ins, *outs, *s1, *s2), P, N, c, _num_sms(dev), stream)
+        rc = launch(*_ptrs(*ins, *outs, *s1, *s2), P, N, c, stream)
     if rc != 0:
         raise RuntimeError(f"topk_select launch failed: CUDA error {rc}")
     _count("topk_select")
@@ -437,6 +458,15 @@ def topk_select(a, b, pos, k: int):
 
 _SCAN_DTYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2, torch.float64: 3}
 _SCAN_FUNCS = {"sum": 0, "min": 1, "max": 2}
+SCAN_TILE = 4096  # lanes one block of the scan kernel takes (sc_tile())
+
+
+def scan_plan(P: int, N: int, tile: int = SCAN_TILE) -> tuple[int, int]:
+    """The scan kernel's tiles over [P, N] and the bytes of its status
+    buffer: 8 bytes of published aggregate a tile, then one u32 ticket and
+    one u32 status word a tile (the part the launch zeroes)."""
+    tiles = P * (N // min(N, tile))
+    return tiles, tiles * 8 + (1 + tiles) * 4
 
 
 def segmented_scan(vals, boundary, func: str):
@@ -459,23 +489,21 @@ def segmented_scan(vals, boundary, func: str):
     if vals.dtype not in _SCAN_DTYPES:
         raise TypeError(f"segmented_scan: no kernel for dtype {vals.dtype}")
     dev = vals.device
-    v = vals.contiguous()
-    f = boundary.to(torch.bool).contiguous()  # one byte a lane, never widened
-    out = torch.empty_like(v)
+    v = _aligned(vals, 16)  # the kernel's 16-byte loads
+    # one byte a lane, never widened: the bool lanes viewed as u8, no copy
+    f = _aligned(boundary.to(torch.bool), 16).view(torch.uint8)
+    out = torch.empty(v.shape, dtype=v.dtype, device=dev)
     if P * N == 0:  # nothing to scan, nothing launched
         return out
-    tile = min(N, _bind("segmented_scan", "sc_tile", [])())
-    n_tiles = P * (N // tile)
-    agg_v = torch.empty(n_tiles, dtype=v.dtype, device=dev)
-    agg_f = torch.empty(n_tiles, dtype=torch.bool, device=dev)
-    carry = torch.empty(n_tiles, dtype=v.dtype, device=dev)
+    _, n_status = scan_plan(P, N, _bind("segmented_scan", "sc_tile", [])())
+    status = torch.empty(n_status, dtype=torch.uint8, device=dev)
     launch = _bind("segmented_scan", "sc_launch",
-                   [ctypes.c_int, ctypes.c_int] + [_VP] * 6
+                   [ctypes.c_int, ctypes.c_int] + [_VP] * 4
                    + [ctypes.c_longlong, ctypes.c_longlong, _VP])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(_SCAN_DTYPES[v.dtype], _SCAN_FUNCS[func],
-                    *_ptrs(v, f, out, agg_v, agg_f, carry), P, N, stream)
+                    *_ptrs(v, f, out, status), P, N, stream)
     if rc != 0:
         raise RuntimeError(f"segmented_scan launch failed: CUDA error {rc}")
     _count("segmented_scan")

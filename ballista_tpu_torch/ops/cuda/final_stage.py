@@ -200,11 +200,17 @@ def _segscan(values: torch.Tensor, boundary: torch.Tensor, func: str) -> torch.T
     applied in the association order of the reference's
     `jax.lax.associative_scan` (pairwise reduce, recurse, fill the even
     positions), so float sums agree with the JAX package bit for bit and
-    reruns are bitwise identical."""
+    reruns are bitwise identical.
+
+    Two float details follow what the reference returns on the CPU: the
+    op takes the later operand first, which decides the sign of a NaN
+    that two NaNs (or inf - inf) leave; and once a combine has run (two
+    rows or more) it returns no -0.0, so a float -0.0 result becomes +0.0
+    there (every other bit is kept). One row is returned as it is."""
     op = {"min": torch.minimum, "max": torch.maximum, "sum": torch.add}[func]
 
     def combine(av, af, bv, bf):
-        return torch.where(bf, bv, op(av, bv)), af | bf
+        return torch.where(bf, bv, op(bv, av)), af | bf
 
     def scan(v, f):
         n = v.shape[0]
@@ -223,7 +229,10 @@ def _segscan(values: torch.Tensor, boundary: torch.Tensor, func: str) -> torch.T
         out_f[0::2], out_f[1::2] = ef, odd_f
         return out_v, out_f
 
-    return scan(values, boundary)[0]
+    out = scan(values, boundary)[0]
+    if out.dtype.is_floating_point and out.shape[0] > 1:
+        out = torch.where(out == 0, torch.zeros((), dtype=out.dtype, device=out.device), out)
+    return out
 
 
 def _first_of_run(x: torch.Tensor) -> torch.Tensor:

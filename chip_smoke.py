@@ -18,13 +18,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    call torch.take); dict_filter at q12's P=8, N=2097152, T=8, and T=4096
    and T=1<<17 (the global-LUT regime), exact (library call torch.take);
    segmented_sort at the window shape [1, 2^20], at [1, 2^18] and
-   [4, 4096], with ties and padding sentinels, exact (library: two stable
-   torch.sort passes); topk_select at [1, 2^20] with k = 1, 100, 1000 and
-   ties at the cut, exact (library: torch.topk(largest=False), timing
-   only); segmented_scan at [1, 2^20]: i64 sum and max with a boundary
-   about every 15 lanes, f64 max and min over NaN/+-0/+-inf, a row with
-   no boundary, bitwise; f32/f64 sums within rtol 1e-5 / 1e-12 of the
-   segment's sum of |v| (library: unsegmented torch.cumsum / cummax);
+   [4, 4096], with ties and padding sentinels, and at the edges (rows
+   below the 2048-lane tile, an odd count of merge passes, P > 1, rows of
+   sentinels only, ties everywhere), exact, at most 12 launches a call
+   (library: two stable torch.sort passes); topk_select at [1, 2^20] with
+   k = 1, 100, 1000 and 4096 (through the full sort) and ties at the cut,
+   exact (library: torch.topk(largest=False), timing only);
+   segmented_scan at [1, 2^20]: i64 sum and max with a boundary about
+   every 15 lanes, f64 max and min over NaN/+-0/+-inf, a row with no
+   boundary, a boundary on every lane, and P > 1, rows below the tile
+   and one lane, bitwise, one kernel and one memset a call; f32/f64
+   sums within rtol 1e-5 / 1e-12 of the segment's sum of |v| (library:
+   unsegmented torch.cumsum / cummax);
 4. generate TPC-H with the port's generator (SF10 for q1/q6/q5/q12, SF1
    for q4, seed 42; reused when a matching manifest exists) and run q1,
    q6, q5 (auto mode), q12 (ballista.tpu.fusion.mode=fused_pallas) and q4
@@ -214,11 +219,26 @@ def _bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
 
 def _timings(kernel, plain, library, busy_ok: bool) -> dict:
     """CUDA-event means of the kernel's wrapper (50 launches), its plain
-    form (10) and the library call (50); the kernel's own device time from
-    the checked profiler method (20 launches), None when unchecked."""
-    busy = device_busy_ms(kernel, 20) if busy_ok else None
+    form (10) and the library call (50); the device times of the kernel
+    and of the library call from the checked profiler method (20 calls
+    each), None when unchecked, with the kernel's device events per call
+    by name (its launches, memsets and copies)."""
+    by_name: dict = {}
+    busy = device_busy_ms(kernel, 20, by_name=by_name) if busy_ok else None
+    lib_busy = device_busy_ms(library, 20) if busy_ok else None
     return {"ms": cuda_ms(kernel, 50), "device_ms": None if busy is None else busy / 20,
-            "plain_ms": cuda_ms(plain, 10), "library_ms": cuda_ms(library, 50)}
+            "plain_ms": cuda_ms(plain, 10), "library_ms": cuda_ms(library, 50),
+            "library_device_ms": None if lib_busy is None else lib_busy / 20,
+            "device_events_per_call": {n[:60]: c / 20 for n, (_, c) in by_name.items()}}
+
+
+def _kernel_launches(rec: dict) -> float | None:
+    """Kernel launches per call in the traced timing, memsets and copies
+    left out; None when the trace was not taken."""
+    events = rec.get("device_events_per_call")
+    if not events:
+        return None
+    return sum(c for n, c in events.items() if not n.startswith(("Memset", "Memcpy")))
 
 
 def gather_phase(dev, busy_ok: bool) -> list[dict]:
@@ -363,9 +383,11 @@ def kernel_phase(dev, busy_ok: bool) -> dict:
     return record
 
 
-def _sort_inputs(P: int, N: int, dev, seed: int, a_hi: int = 1000):
+def _sort_inputs(P: int, N: int, dev, seed: int, a_hi: int = 1000, kind: str = "random"):
     """Triples with ties on a and on (a, b), positions 0..N-1 and a tail of
-    (i64 max, i64 max) padding sentinels, as the sort stage pads."""
+    (i64 max, i64 max) padding sentinels, as the sort stage pads. kind
+    "ties": every lane equal but for pos; "sentinels": every lane a
+    padding sentinel, pos included."""
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -376,24 +398,31 @@ def _sort_inputs(P: int, N: int, dev, seed: int, a_hi: int = 1000):
     if pad:
         a[:, -pad:] = 2**63 - 1
         b[:, -pad:] = 2**63 - 1
+    if kind == "ties":
+        a[:] = 7
+        b[:] = 3
+    elif kind == "sentinels":
+        a[:] = 2**63 - 1
+        b[:] = 2**63 - 1
+        pos[:] = 2**31 - 1
     return a.to(dev), b.to(dev), pos.to(dev)
 
 
-def _scan_inputs(N: int, dev, seed: int, dtype, p_boundary: float, specials: bool):
+def _scan_inputs(N: int, dev, seed: int, dtype, p_boundary: float, specials: bool, P: int = 1):
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
     if dtype in (torch.int32, torch.int64):
-        v = rng.integers(-10**6, 10**6, (1, N))
+        v = rng.integers(-10**6, 10**6, (P, N))
     else:
-        v = rng.uniform(-100.0, 100.0, (1, N))
+        v = rng.uniform(-100.0, 100.0, (P, N))
         if specials:
             for val, share in ((np.nan, 0.01), (0.0, 0.02), (-0.0, 0.02),
                                (np.inf, 0.005), (-np.inf, 0.005)):
-                v[rng.random((1, N)) < share] = val
+                v[rng.random((P, N)) < share] = val
     return (torch.as_tensor(v).to(dtype).to(dev),
-            torch.as_tensor(rng.random((1, N)) < p_boundary).to(dev))
+            torch.as_tensor(rng.random((P, N)) < p_boundary).to(dev))
 
 
 def _equal_bits(x, y) -> bool:
@@ -418,18 +447,24 @@ def sort_family_phase(dev, busy_ok: bool) -> list[dict]:
 
     records = []
     sort = {}
-    for P, N in ((1, 1 << 20), (1, 1 << 18), (4, 4096)):
-        a, b, pos = _sort_inputs(P, N, dev, seed=N + P)
+    # the path's shapes, then the edges: rows below the tile, an odd count
+    # of merge passes, P > 1, rows of sentinels only, ties everywhere
+    for P, N, kind in ((1, 1 << 20, "random"), (1, 1 << 18, "random"), (4, 4096, "random"),
+                       (3, 512, "random"), (2, 2, "random"), (3, 1, "random"),
+                       (1, 16384, "random"), (3, 1 << 15, "random"),
+                       (2, 1 << 16, "sentinels"), (1, 1 << 20, "ties")):
+        a, b, pos = _sort_inputs(P, N, dev, seed=N + P, kind=kind)
         r1 = ck.segmented_sort(a, b, pos)
         r2 = ck.segmented_sort(a, b, pos)
         rp = ck.segmented_sort_plain(a, b, pos)
         torch.cuda.synchronize()
+        what = f"segmented_sort [{P}, {N}] {kind}"
         if not all(torch.equal(x, y) for x, y in zip(r1, r2)):
-            raise AssertionError(f"segmented_sort [{P}, {N}]: two runs differ bitwise")
+            raise AssertionError(f"{what}: two runs differ bitwise")
         if not all(torch.equal(x, y) for x, y in zip(r1, rp)):
-            raise AssertionError(f"segmented_sort [{P}, {N}]: differs from the plain form")
-        log(f"segmented_sort [{P}, {N}] (ties, 1/8 sentinels): exact, reruns bitwise identical")
-        if P != 1:
+            raise AssertionError(f"{what}: differs from the plain form")
+        log(f"{what} ({ck.sort_plan(N)[1]} merge passes): exact, reruns bitwise identical")
+        if P != 1 or kind != "random" or N < 1 << 18:
             continue
 
         def two_pass(a=a, b=b):  # two stable torch.sort passes, b then a
@@ -440,12 +475,15 @@ def sort_family_phase(dev, busy_ok: bool) -> list[dict]:
         rec = _timings(lambda a=a, b=b, pos=pos: ck.segmented_sort(a, b, pos),
                        lambda a=a, b=b, pos=pos: ck.segmented_sort_plain(a, b, pos),
                        two_pass, busy_ok)
-        # each lane read once and written once (20 B each way); the network's
-        # N/2 * log2 N * (log2 N + 1) / 2 compare-exchanges as operations
-        lg = int(math.log2(N))
-        rec["compare_exchanges"] = P * N // 2 * lg * (lg + 1) // 2
-        rec["bound_ms"], rec["bound_by"] = _bound(P * N * 40, rec["compare_exchanges"])
+        # each lane read once and written once (20 B each way); N log2 N
+        # compares, the least any comparison sort needs, as operations
+        rec["comparisons"] = P * N * int(math.log2(N))
+        rec["bound_ms"], rec["bound_by"] = _bound(P * N * 40, rec["comparisons"])
         rec["shape"] = [P, N]
+        rec["launches_per_call"] = _kernel_launches(rec)
+        if rec["launches_per_call"] is not None and rec["launches_per_call"] > 12:
+            raise AssertionError(f"segmented_sort [{P}, {N}]: {rec['launches_per_call']} "
+                                 "launches a call, at most 12 expected")
         sort[N] = rec
         del a, b, pos, r1, r2, rp
     main = sort[1 << 20]
@@ -458,7 +496,7 @@ def sort_family_phase(dev, busy_ok: bool) -> list[dict]:
     N = 1 << 20
     a, b, pos = _sort_inputs(1, N, dev, seed=5, a_hi=50)  # 50 values: ties at every cut
     topk = {}
-    for k in (1, 100, 1000):
+    for k in (1, 100, 1000, 4096):  # 4096: C above the tile, through the full sort
         r1 = ck.topk_select(a, b, pos, k)
         r2 = ck.topk_select(a, b, pos, k)
         rp = ck.topk_select_plain(a, b, pos, k)
@@ -485,18 +523,27 @@ def sort_family_phase(dev, busy_ok: bool) -> list[dict]:
 
     scan = {}
     sum_err = {}
+    # (dtype, func, boundary share, specials, P, N): the path's shape, no
+    # boundary across 256 tiles, then the edges: a boundary on every lane,
+    # P > 1 over several tiles, rows below the tile, one lane
     cases = [(torch.int64, "sum", 1 / 15, False), (torch.int64, "max", 1 / 15, False),
              (torch.int64, "sum", 0.0, False), (torch.float64, "max", 1 / 15, True),
              (torch.float64, "min", 1 / 15, True), (torch.float64, "max", 0.0, True),
              (torch.float32, "sum", 1 / 15, False), (torch.float64, "sum", 1 / 15, False),
-             (torch.float32, "sum", 0.0, False), (torch.float64, "sum", 0.0, False)]
-    for i, (dtype, func, p_b, specials) in enumerate(cases):
-        v, f = _scan_inputs(N, dev, 30 + i, dtype, p_b, specials)
+             (torch.float32, "sum", 0.0, False), (torch.float64, "sum", 0.0, False),
+             (torch.int64, "sum", 1.0, False), (torch.float64, "max", 1.0, True),
+             (torch.int32, "min", 0.001, False, 3, 1 << 14),
+             (torch.float32, "max", 0.001, True, 3, 1 << 14),
+             (torch.float64, "sum", 0.15, False, 3, 1024), (torch.int64, "max", 0.0, False, 2, 1)]
+    for i, (dtype, func, p_b, specials, *shape) in enumerate(cases):
+        P, n = shape or (1, N)
+        v, f = _scan_inputs(n, dev, 30 + i, dtype, p_b, specials, P=P)
         r1 = ck.segmented_scan(v, f, func)
         r2 = ck.segmented_scan(v, f, func)
         rp = ck.segmented_scan_plain(v, f, func)
         torch.cuda.synchronize()
-        what = f"segmented_scan {str(dtype)[6:]} {func} boundary share {p_b:.4f}"
+        what = (f"segmented_scan [{P}, {n}] {str(dtype)[6:]} {func} "
+                f"boundary share {p_b:.4f}")
         if not _equal_bits(r1, r2):
             raise AssertionError(f"{what}: two runs differ bitwise")
         if func == "sum" and dtype.is_floating_point:
@@ -505,7 +552,7 @@ def sort_family_phase(dev, busy_ok: bool) -> list[dict]:
             err = (r1 - rp).abs()
             if not bool((err <= rtol * scale).all()):
                 raise AssertionError(f"{what}: beyond rtol {rtol} of the segment's sum of |v|")
-            sum_err[f"{str(dtype)[6:]} boundary share {p_b:.4f}"] = float(err.max())
+            sum_err[f"[{P}, {n}] {str(dtype)[6:]} boundary share {p_b:.4f}"] = float(err.max())
             log(f"{what}: max_abs_err={float(err.max()):.3e} within rtol {rtol} "
                 "of the segment's sum of |v|, reruns bitwise identical")
         else:
@@ -514,6 +561,7 @@ def sort_family_phase(dev, busy_ok: bool) -> list[dict]:
             log(f"{what}{' (NaN, +-0, +-inf)' if specials else ''}: bitwise equal, "
                 "reruns bitwise identical")
         if (dtype, func, p_b) in ((torch.int64, "sum", 1 / 15), (torch.float64, "max", 1 / 15)):
+            # one kernel launch and one memset of the tile counters a call
             library = ((lambda v=v: torch.cumsum(v, dim=1)) if func == "sum"
                        else (lambda v=v: torch.cummax(v, dim=1)))
             rec = _timings(lambda v=v, f=f, func=func: ck.segmented_scan(v, f, func),
@@ -522,6 +570,12 @@ def sort_family_phase(dev, busy_ok: bool) -> list[dict]:
             # value (8 B) and flag (1 B) read, value (8 B) written; one op a lane
             rec["bound_ms"], rec["bound_by"] = _bound(N * 17, N)
             rec.update(shape=[1, N], dtype=str(dtype)[6:], func=func)
+            rec["launches_per_call"] = _kernel_launches(rec)
+            events = rec["device_events_per_call"]
+            if events and (rec["launches_per_call"] > 1 or sum(
+                    c for name, c in events.items() if name.startswith(("Memset", "Memcpy"))) > 1):
+                raise AssertionError(f"{what}: device events per call {events}, one kernel "
+                                     "and at most one memset expected")
             scan[(dtype, func)] = rec
         del v, f, r1, r2, rp
     main = scan[(torch.int64, "sum")]

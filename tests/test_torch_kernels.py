@@ -330,6 +330,32 @@ def test_final_stage_segscan_matches_jax_associative_scan(n, seed):
         np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("seed", range(6))
+def test_final_stage_segscan_bits_match_reference(seed, dtype):
+    # bit patterns, not values: the sign of a zero (the reference returns
+    # no -0.0 once two rows combine) and of a NaN left by inf - inf or two
+    # NaNs must agree
+    from ballista_tpu.ops.tpu.runtime import ensure_jax
+    from ballista_tpu.ops.tpu.stage_compiler import _segscan as jax_segscan
+    from ballista_tpu_torch.ops.cuda.final_stage import _segscan
+
+    jnp = ensure_jax().numpy
+    pool = np.array([0.0, -0.0, 1.0, -1.0, 2.5, np.nan, np.inf, -np.inf], dtype)
+    bits = np.int64 if dtype == np.float64 else np.int32
+    rng = np.random.default_rng(seed)
+    for _ in range(20):
+        n = int(rng.integers(1, 41))
+        vals = pool[rng.integers(0, len(pool), n)]
+        boundary = rng.random(n) < 0.3
+        boundary[0] = True
+        for func in ("sum", "min", "max"):
+            want = np.asarray(jax_segscan(jnp, jnp.asarray(vals), jnp.asarray(boundary), func))
+            got = _segscan(torch.from_numpy(vals), torch.from_numpy(boundary), func).numpy()
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got.view(bits), want.view(bits), err_msg=func)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("T", [32, 4, 1 << 18])
 def test_cuda_hash_probe_matches_plain_form(T):
@@ -498,11 +524,51 @@ def _on_card():
     return torch.device("cuda", 0)
 
 
+@pytest.mark.parametrize("P", [1, 3])
+@pytest.mark.parametrize("N,tile,passes", [(1, 1, 0), (2, 2, 0), (512, 512, 0),
+                                           (2048, 2048, 0), (4096, 2048, 1),
+                                           (1 << 18, 2048, 7), (1 << 20, 2048, 9)])
+def test_sort_plan(P, N, tile, passes):
+    # the tile pass writes the output itself when the merge passes are even
+    # in number, so the last pass lands there; P does not change the plan
+    assert ck.sort_plan(N) == (tile, passes, passes % 2 == 0)
+    assert ck.SORT_TILE == 2048
+
+
+@pytest.mark.parametrize("P", [1, 3])
+@pytest.mark.parametrize("N", [1, 4096, 8192, 1 << 20])
+def test_scan_plan(P, N):
+    tiles, n_bytes = ck.scan_plan(P, N)
+    assert tiles == P * max(1, N // 4096)
+    # an 8-byte aggregate and a u32 status a tile, and the u32 ticket
+    assert n_bytes == tiles * 12 + 4
+    assert ck.SCAN_TILE == 4096
+
+
+def _sort_edge_inputs(kind, P, N, seed=9):
+    """Sort inputs of one kind: "random" (ties on a and b), "ties" (every
+    lane equal but for pos) and "sentinels" (every lane a padding
+    sentinel, pos included)."""
+    a, b, pos = _sort_inputs(seed, P, N, a_hi=1000)
+    if kind == "ties":
+        a[:] = 7
+        b[:] = 3
+    elif kind == "sentinels":
+        a[:] = _I64_MAX
+        b[:] = _I64_MAX
+        pos[:] = _I32_MAX
+    return a, b, pos
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("P,N", [(1, 1 << 20), (1, 1 << 18), (4, 4096), (3, 1)])
-def test_cuda_segmented_sort_matches_plain_form(P, N):
+@pytest.mark.parametrize("P,N,kind", [
+    (1, 1 << 20, "random"), (1, 1 << 18, "random"), (4, 4096, "random"), (3, 1, "random"),
+    (2, 2, "random"), (3, 512, "random"),  # N below the tile: the tile pass alone
+    (1, 16384, "random"), (3, 1 << 15, "random"),  # 3 and 4 merge passes, P > 1
+    (2, 1 << 16, "ties"), (2, 1 << 16, "sentinels"), (1, 1 << 20, "ties")])
+def test_cuda_segmented_sort_matches_plain_form(P, N, kind):
     dev = _on_card()
-    a, b, pos = (torch.from_numpy(x).to(dev) for x in _sort_inputs(9, P, N, a_hi=1000))
+    a, b, pos = (torch.from_numpy(x).to(dev) for x in _sort_edge_inputs(kind, P, N))
     r1 = ck.segmented_sort(a, b, pos)
     r2 = ck.segmented_sort(a, b, pos)
     rp = ck.segmented_sort_plain(a, b, pos)
@@ -511,7 +577,30 @@ def test_cuda_segmented_sort_matches_plain_form(P, N):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [1, 100, 1000, 3000])
+def test_cuda_sort_family_from_concurrent_threads():
+    # the window stage calls the kernels from one thread per partition:
+    # every call's scratch must stay its own until its kernels have run
+    from concurrent.futures import ThreadPoolExecutor
+
+    dev = _on_card()
+
+    def one(seed):
+        a, b, pos = (torch.from_numpy(x).to(dev) for x in _sort_inputs(seed, 1, 1 << 16, a_hi=1000))
+        v, f = (torch.from_numpy(x).to(dev)
+                for x in _scan_inputs(seed, np.int64, "sum", P=1, N=1 << 16))
+        got = ck.segmented_sort(a, b, pos), ck.segmented_scan(v, f, "sum")
+        want = ck.segmented_sort_plain(a, b, pos), ck.segmented_scan_plain(v, f, "sum")
+        torch.cuda.synchronize()
+        return (all(torch.equal(x, y) for x, y in zip(got[0], want[0]))
+                and torch.equal(got[1], want[1]))
+
+    for _ in range(3):
+        with ThreadPoolExecutor(16) as pool:
+            assert all(pool.map(one, range(32)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 100, 1000, 3000, 4096])
 def test_cuda_topk_select_matches_plain_form(k):
     dev = _on_card()
     a, b, pos = (torch.from_numpy(x).to(dev) for x in _sort_inputs(k, 1, 1 << 20, a_hi=50))
@@ -522,22 +611,29 @@ def test_cuda_topk_select_matches_plain_form(k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [np.int64, np.float32, np.float64], ids=["i64", "f32", "f64"])
+@pytest.mark.parametrize("dtype", [np.int64, np.float32, np.float64, np.int32],
+                         ids=["i64", "f32", "f64", "i32"])
 @pytest.mark.parametrize("func", ["sum", "min", "max"])
 def test_cuda_segmented_scan_matches_plain_form(func, dtype):
+    # (P, N, boundary share): the path's shape, no boundary across 256
+    # tiles, a boundary on every lane, P > 1 over several tiles, rows
+    # shorter than a tile, and one lane
     dev = _on_card()
-    for p_boundary in (1 / 15, 0.0):
+    for P, N, p_boundary in ((1, 1 << 20, 1 / 15), (1, 1 << 20, 0.0), (1, 1 << 20, 1.0),
+                             (3, 1 << 14, 0.001), (3, 1024, 0.15), (2, 1, 0.0)):
         v, f = (torch.from_numpy(x).to(dev)
-                for x in _scan_inputs(5, dtype, func, P=1, N=1 << 20, p_boundary=p_boundary))
+                for x in _scan_inputs(5, dtype, func, P=P, N=N, p_boundary=p_boundary))
         got = ck.segmented_scan(v, f, func)
+        again = ck.segmented_scan(v, f, func)
         want = ck.segmented_scan_plain(v, f, func)
         torch.cuda.synchronize()
+        bits = torch.int32 if v.element_size() == 4 else torch.int64
+        assert torch.equal(got.view(bits), again.view(bits))  # reruns bitwise identical
         if func == "sum" and v.dtype.is_floating_point:
             rtol = 1e-5 if v.dtype == torch.float32 else 1e-12
             scale = ck.segmented_scan_plain(v.abs(), f, "sum")
             assert bool(((got - want).abs() <= rtol * scale).all())
         else:
-            bits = torch.int32 if v.element_size() == 4 else torch.int64
             assert torch.equal(got.view(bits), want.view(bits))
 
 
