@@ -1,5 +1,6 @@
 // A stable merge sort over rows of (i64 a, i64 b, i32 pos) triples, for
-// Hopper (sm_90a). Shared by segmented_sort.cu and topk_select.cu.
+// Hopper (sm_90a). Shared by segmented_sort.cu and topk_select.cu (which
+// also sorts its candidate buffers with sort_items and merge_items).
 //
 // A row is up to 2^20 lanes x 20 B = 20 MB; a block has at most 227 KB of
 // shared memory. The sort is bound by the bytes its passes move, so it
@@ -30,11 +31,18 @@
 
 #pragma once
 
-#include "bitonic3.cuh"
+#include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace mergesort3 {
 
-using bitonic3::gt3;
+// Branch-free: every operand is loaded before the compare, and a warp
+// does not diverge on it (the short-circuit form compiled to branches and
+// reconvergence barriers in every merge step).
+__device__ __forceinline__ bool gt3(long long a1, long long b1, int p1,
+                                    long long a2, long long b2, int p2) {
+  return (a1 > a2) | ((a1 == a2) & ((b1 > b2) | ((b1 == b2) & (p1 > p2))));
+}
 
 constexpr int kThreads = 256;
 constexpr int kItems = 8;                 // consecutive lanes a thread holds
@@ -72,7 +80,9 @@ struct Tile {
 // The kItems outputs [k, k + kItems) of the stable merge of the sorted runs
 // A = tile lanes [a0, a0 + la) and B = [b0, b0 + lb) (ties to A), into r:
 // a merge-path search for the thread's split, then a sequential merge
-// with the two heads in registers.
+// with the two heads in registers. An exhausted run's head reads as the
+// largest triple; each step loads one lane, from the run it took from,
+// without a branch.
 __device__ __forceinline__ void merge_items(const Tile& s, int a0, int la, int b0, int lb,
                                             int k, Tri (&r)[kItems]) {
   int lo = k > lb ? k - lb : 0, hi = k < la ? k : la;
@@ -84,18 +94,37 @@ __device__ __forceinline__ void merge_items(const Tile& s, int a0, int la, int b
       hi = mid;
     }
   }
+  const Tri top{9223372036854775807LL, 9223372036854775807LL, 2147483647};
   int x = lo, y = k - lo;
-  Tri ha, hb;
-  if (x < la) ha = s.ld(a0 + x);
-  if (y < lb) hb = s.ld(b0 + y);
+  Tri ha = x < la ? s.ld(a0 + x) : top;
+  Tri hb = y < lb ? s.ld(b0 + y) : top;
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
-    const bool take_a = y >= lb || (x < la && !gt(ha, hb));
+    const bool take_a = !gt(ha, hb);
     r[i] = take_a ? ha : hb;
+    x += take_a;
+    y += !take_a;
+    const bool more = take_a ? x < la : y < lb;
+    const Tri next = s.ld(more ? (take_a ? a0 + x : b0 + y) : a0);
     if (take_a) {
-      if (++x < la) ha = s.ld(a0 + x);
+      ha = more ? next : top;
     } else {
-      if (++y < lb) hb = s.ld(b0 + y);
+      hb = more ? next : top;
+    }
+  }
+}
+
+// a thread's kItems lanes sorted in registers (odd-even transposition)
+__device__ __forceinline__ void sort_items(Tri (&r)[kItems]) {
+#pragma unroll
+  for (int round = 0; round < kItems; ++round) {
+#pragma unroll
+    for (int i = round & 1; i + 1 < kItems; i += 2) {
+      if (gt(r[i], r[i + 1])) {
+        const Tri x = r[i];
+        r[i] = r[i + 1];
+        r[i + 1] = x;
+      }
     }
   }
 }
@@ -134,17 +163,7 @@ tile_sort_kernel(const long long* __restrict__ a, const long long* __restrict__ 
   Tri r[kItems];
 #pragma unroll
   for (int i = 0; i < kItems; ++i) r[i] = s.ld(k0 + i);
-#pragma unroll
-  for (int round = 0; round < kItems; ++round) {
-#pragma unroll
-    for (int i = round & 1; i + 1 < kItems; i += 2) {
-      if (gt(r[i], r[i + 1])) {
-        const Tri x = r[i];
-        r[i] = r[i + 1];
-        r[i + 1] = x;
-      }
-    }
-  }
+  sort_items(r);
   for (int run = kItems; run < kTile; run <<= 1) {
     __syncthreads();  // every thread has read the previous level
     put_run(s, k0, r);

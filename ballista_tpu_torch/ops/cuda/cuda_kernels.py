@@ -8,10 +8,14 @@ their C interfaces.
 - `masked_group_reduce` (:125): per-(partition, group) masked f32 sums
   and exact int32 counts over [P, N] lanes, for G up to MAX_GROUPS.
   Bound: bytes, P*N*(4 + 4 + 1) read once and P*G*(4 + 4) written; its one
-  add per row is far below the f32 rate. The design reads every row from
-  device memory exactly once (into registers), keeps the per-group
-  accumulators in registers, and reduces across chunks in a second
-  fixed-order pass: no atomics, so reruns are bitwise identical.
+  add per row is far below the f32 rate. The design (since PR 5) streams
+  each block's span once with 16-byte loads, in work that does not grow
+  with G: register accumulators for every group up to G = 32, per-warp
+  shared-memory bins (lanes of one group combined with __match_any_sync)
+  above; the blocks' partials are summed in block order by a second
+  launch. No float atomics, so reruns are bitwise identical. A row adds
+  only into its own group (the reference's one-hot dot leaks NaN × 0 into
+  every group: ROADMAP C4).
 - `hash_probe` (:185): the direct-mode join probe, rows = table[keys]
   fused with the probe mask. Bound: bytes, P*N*(4 + 1) read, P*N*(4 + 1)
   written, the [T] table read once.
@@ -25,9 +29,13 @@ their C interfaces.
   shared memory, so 2048-lane tiles are sorted in shared memory and
   merged pairwise by merge-path passes (csrc/mergesort3.cuh): 10 launches
   at 2^20, each over the row once.
-- `topk_select` (:351): the k smallest triples per row, in order, by
-  sorting tiles and folding C-lane candidate sets. Bound: bytes, P*N*20
-  read, P*C*20 written.
+- `topk_select` (:351): the k smallest triples per row, in order, by a
+  threshold filter (since PR 5): blocks stream the row, compact the lanes
+  below their C-th best into a shared buffer and merge it in when it is
+  full; the blocks' lists then meet in a tournament of ticketed merges
+  (fan-in 2048 / C). One memset and one kernel a call; C > 2048 sorts the
+  row through segmented_sort's merge sort. Bound: bytes, P*N*16 read
+  (pos only where (a, b) passes), P*C*20 written.
 - `segmented_scan` (:421): an inclusive segmented sum/min/max per row,
   reset at boundary lanes, in one launch that reads and writes every lane
   once: each tile publishes its aggregate and looks back over its
@@ -42,7 +50,9 @@ the wrapper adds to it, where it launches.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import threading
 
 import torch
@@ -106,11 +116,49 @@ def _bind(name: str, fn: str, argtypes: list):
         return f
 
 
+_SMS: dict = {}
+
+
+def _num_sms(dev) -> int:
+    n = _SMS.get(dev.index)
+    if n is None:
+        n = _SMS[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return n
+
+
+def _on(dev):
+    """The device context a launch needs: none when `dev` is current."""
+    return (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+            else torch.cuda.device(dev))
+
+
+MGR_CHUNK = 16  # lanes a kernel thread reads a step (kItems: four 16-byte loads)
+
+
+@functools.cache
+def _mgr_launch():
+    """The kernel's launch function, bound once: later calls take no lock."""
+    return _bind("masked_group_reduce", "mgr_launch",
+                 [_VP] * 7 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_longlong, _VP])
+
+
+def mgr_plan(P: int, N: int, G: int, sms: int) -> tuple[int, int]:
+    """The kernel's blocks per row and the lanes each takes (a multiple of
+    its chunk): about two blocks an SM over all rows for G <= 32
+    (registers), one for larger G (shared-memory bins)."""
+    per_row = max(1, (2 if G <= 32 else 1) * sms // max(P, 1))
+    span = -(-N // per_row)
+    span = -(-span // MGR_CHUNK) * MGR_CHUNK
+    return -(-N // span), span
+
+
 def masked_group_reduce(vals, gid, mask, num_groups: int):
     """Per-(partition, group) masked (sum, count) over [P, N] lanes.
 
     vals: float [P, N]; gid: int [P, N]; mask: bool [P, N]. Rows whose
-    group id lies outside [0, num_groups) count nowhere.
+    group id lies outside [0, num_groups) count nowhere, and a row adds
+    only into its own group (a NaN or inf value leaks into no other).
     Returns (sums f32 [P, G], counts i32 [P, G]).
     """
     if num_groups > MAX_GROUPS:
@@ -125,28 +173,25 @@ def masked_group_reduce(vals, gid, mask, num_groups: int):
         raise ValueError("masked_group_reduce: inputs on different devices")
     dev = vals.device
     P, N = vals.shape
-    v = vals.to(torch.float32).contiguous()
-    g = gid.to(torch.int32).contiguous()
-    m = mask.to(torch.bool).contiguous()
     if P == 0 or N == 0 or num_groups == 0:  # nothing to reduce, nothing launched
         return (torch.zeros((P, num_groups), dtype=torch.float32, device=dev),
                 torch.zeros((P, num_groups), dtype=torch.int32, device=dev))
-    # every (partition, group) cell is written by the kernel's second pass
+    # the kernel's 16-byte loads: values, ids and mask words
+    v = _aligned(vals.to(torch.float32), 16)
+    g = _aligned(gid.to(torch.int32), 16)
+    m = _aligned(mask.to(torch.bool), 16).view(torch.uint8)
+    blocks, span = mgr_plan(P, N, num_groups, _num_sms(dev))
+    # every (partition, group) cell is written by the kernel's second launch
     sums = torch.empty((P, num_groups), dtype=torch.float32, device=dev)
     cnts = torch.empty((P, num_groups), dtype=torch.int32, device=dev)
-    # rows per block of the kernel's first pass
-    n_chunks = -(-N // _bind("masked_group_reduce", "mgr_chunk_rows", [])())
-    launch = _bind("masked_group_reduce", "mgr_launch",
-                   [_VP] * 7 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                                ctypes.c_int, _VP])
-    part_s = torch.empty((P, n_chunks, num_groups), dtype=torch.float32, device=dev)
-    part_c = torch.empty((P, n_chunks, num_groups), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(v.data_ptr(), g.data_ptr(), m.data_ptr(),
-                    part_s.data_ptr(), part_c.data_ptr(),
-                    sums.data_ptr(), cnts.data_ptr(),
-                    P, N, num_groups, n_chunks, stream)
+    # the blocks' partial sums, then their counts, in one allocation
+    n_part = P * blocks * num_groups
+    part = torch.empty(2 * n_part, dtype=torch.int32, device=dev)
+    with _on(dev):
+        rc = _mgr_launch()(v.data_ptr(), g.data_ptr(), m.data_ptr(), part.data_ptr(),
+                        part.data_ptr() + 4 * n_part, sums.data_ptr(), cnts.data_ptr(),
+                        P, N, num_groups, blocks, span,
+                        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"masked_group_reduce launch failed: CUDA error {rc}")
     _count("masked_group_reduce")
@@ -186,10 +231,6 @@ def _check_gather_args(name: str, idx, table, mask) -> None:
         raise ValueError(f"{name}: inputs on different devices")
     if table.shape[0] < 1 or table.shape[0] >= 2**31:
         raise ValueError(f"{name}: table length {table.shape[0]} out of range")
-
-
-def _num_sms(dev) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def hash_probe(keys, table, mask):
@@ -423,6 +464,39 @@ def segmented_sort(a, b, pos):
     return outs
 
 
+TOPK_CAP = 2048  # the largest C the filter takes (tk_cap()); above it, the full sort
+TOPK_STEP = 1024  # lanes a filter block reads a step (tk_step())
+
+
+@functools.cache
+def _topk_lib():
+    """(launch function, tk_cap(), tk_step()), bound and read once."""
+    return (_bind("topk_select", "tk_launch",
+                  [_VP] * 7 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_longlong, _VP]),
+            _bind("topk_select", "tk_cap", [])(), _bind("topk_select", "tk_step", [])())
+
+
+def topk_plan(P: int, N: int, C: int, sms: int, cap: int = TOPK_CAP,
+              step: int = TOPK_STEP) -> tuple[int, int, int]:
+    """How the kernel selects over [P, N] with C candidates: (filter
+    blocks per row, lanes each takes, scratch bytes). About one block an
+    SM over all rows, each span a multiple of the block's step. Scratch:
+    the blocks' C-lane lists and the tournament's tickets, 16 levels of
+    one a block (none for one block a row); for C > cap, the full sort's
+    two triples instead. Every i64 array is rounded up to 16 bytes."""
+    def even(n):
+        return n + (n & 1)
+
+    if C > cap:
+        return 0, 0, 40 * even(P * N)
+    per_row = max(1, sms // max(P, 1))
+    span = -(-N // per_row)
+    span = -(-span // step) * step
+    blocks = -(-N // span)
+    return blocks, span, (20 * even(P * blocks * C) + 64 * P * blocks) if blocks > 1 else 0
+
+
 def topk_select(a, b, pos, k: int):
     """Per-row k smallest triples of [P, N] lanes, in sorted order: ORDER
     BY ... LIMIT without the full sort. Same operand contract and sentinel
@@ -434,22 +508,20 @@ def topk_select(a, b, pos, k: int):
     _check_triples("topk_select", a, b, pos)
     dev = a.device
     c = _topk_chunk(k, N)
-    ins = _triples(a, b, pos)
+    # the filter's 16-byte loads of a and b
+    ins = (_aligned(a.to(torch.int64), 16), _aligned(b.to(torch.int64), 16),
+           pos.to(torch.int32).contiguous())
     outs = _empty_triples(P, c, dev)
     if P * N == 0:  # nothing to select, nothing launched
         return tuple(o[:, :k] for o in outs)
-    # candidate sets between the kernel's passes; a row of C > the tile
-    # (k > 2048) is sorted whole instead, into the first scratch triple
-    # with the second as the sort's own scratch
-    tile = min(N, _bind("topk_select", "tk_tile", [])())
-    n_scratch = P * N if c > tile else P * (N // tile) * c
-    s1 = _empty_triples(1, n_scratch, dev)
-    s2 = _empty_triples(1, n_scratch, dev)
-    launch = _bind("topk_select", "tk_launch",
-                   [_VP] * 12 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _VP])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(*_ptrs(*ins, *outs, *s1, *s2), P, N, c, stream)
+    launch, cap, step = _topk_lib()
+    blocks, span, n_scratch = topk_plan(P, N, c, _num_sms(dev), cap, step)
+    # held until the launch is enqueued (another thread's allocation on
+    # the stream could otherwise take the memory before the kernel runs)
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev) if n_scratch else None
+    with _on(dev):
+        rc = launch(*_ptrs(*ins, *outs), scratch.data_ptr() if n_scratch else None,
+                        P, N, c, blocks, span, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"topk_select launch failed: CUDA error {rc}")
     _count("topk_select")

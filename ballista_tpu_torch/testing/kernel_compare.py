@@ -1,4 +1,4 @@
-"""Time the sort-family kernels of several checkouts on one card.
+"""Time the kernels of several checkouts on one card.
 
     python -m ballista_tpu_torch.testing.kernel_compare PARENT . . PARENT
 
@@ -6,14 +6,19 @@ Each argument is the root of a checkout of this repository (unpack another
 commit with `git archive <commit> | tar -x -C <dir>`). Each runs in its own
 process, in the order given, so alternate them (parent, change, change,
 parent) to see the spread of one card. For each checkout it builds the
-kernels from that checkout's sources and times, at the window path's
-shapes, `segmented_sort` at [1, 2^20] and [1, 2^18] and `segmented_scan`
-(int64 sum, float64 max, a boundary about every 15 lanes) at [1, 2^20]:
-CUDA-event ms per call over 50 calls through the wrapper, device ms per
-call from a torch.profiler trace of 20 calls (the union of the device
-events, memsets included) and the host's ms per call to enqueue 200
-calls. Prints one JSON line per checkout, after the card's name and power
-limit. Needs a CUDA card; exits non-zero without one.
+kernels from that checkout's sources and times, at the main path's
+shapes, `segmented_sort` at [1, 2^20] and [1, 2^18], `segmented_scan`
+(int64 sum, float64 max, a boundary about every 15 lanes) at [1, 2^20],
+`topk_select` at [1, 2^20], k=100, on the top-k stage's operands (a zero,
+b a key in [0, 100000), 1,000,000 real rows) and on descending keys, and
+`masked_group_reduce` at q4's [8, 262144] with G=8 and G=4096 (70% of
+rows kept): CUDA-event ms per call over 50 calls through the wrapper,
+device ms per call from a torch.profiler trace of 20 calls (the union of
+the device events, memsets included) and the host's ms per call to
+enqueue 200 calls. The same for the library yardsticks `torch.topk` and
+`torch.bincount` on the same inputs, under "library". Prints one JSON
+line per checkout, after the card's name and power limit. Needs a CUDA
+card; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -99,6 +104,30 @@ for dtype, func in ((torch.int64, "sum"), (torch.float64, "max")):
     v = torch.as_tensor(rng.integers(-10**6, 10**6, (1, n)), device=dev).to(dtype)
     out[f"segmented_scan [1, {n}] {str(dtype)[6:]} {func}"] = times(
         lambda: ck.segmented_scan(v, f, func))
+N = 1 << 20
+lib = out["library"] = {}
+for kind in ("path", "descending"):
+    a = torch.zeros((1, N), dtype=torch.int64, device=dev)
+    b = (torch.as_tensor(rng.integers(0, 100_000, (1, N)), device=dev) if kind == "path"
+         else torch.arange(N, 0, -1, device=dev)[None, :])
+    if kind == "path":  # one partsupp file at SF10, padded to 2^20
+        a[:, 1_000_000:] = 2**63 - 1
+        b[:, 1_000_000:] = 2**63 - 1
+    pos = torch.arange(N, dtype=torch.int32, device=dev)[None, :]
+    out[f"topk_select [1, {N}] k=100 {kind}"] = times(lambda: ck.topk_select(a, b, pos, 100))
+    lib[f"torch.topk [1, {N}] k=100 {kind}"] = times(
+        lambda: torch.topk(b, 100, dim=-1, largest=False))
+P, n = 8, 262144
+for G in (8, 4096):
+    vals = torch.as_tensor(rng.uniform(-5, 5, (P, n)).astype(np.float32), device=dev)
+    gid = torch.as_tensor(rng.integers(0, G, (P, n)).astype(np.int32), device=dev)
+    mask = torch.as_tensor(rng.random((P, n)) < 0.7, device=dev)
+    out[f"masked_group_reduce [{P}, {n}] G={G}"] = times(
+        lambda: ck.masked_group_reduce(vals, gid, mask, G))
+    key = (gid.long() + torch.arange(P, device=dev)[:, None] * G).flatten()
+    w = torch.where(mask, vals, 0.0).flatten()
+    lib[f"torch.bincount [{P}, {n}] G={G}"] = times(
+        lambda: torch.bincount(key, w, minlength=P * G))
 print(json.dumps(out), flush=True)
 '''
 

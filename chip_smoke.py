@@ -10,9 +10,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, two runs bitwise identical, and time the kernel,
    its plain version and one library call with CUDA events:
-   masked_group_reduce at q4's P=8, N=262144, G=8 and a multi-tile G=300
-   (counts exact, sums within rtol 1e-4 / atol 1e-4, the JAX package's own
-   kernel bound; library call torch.bincount); hash_probe at q5's
+   masked_group_reduce at q4's P=8, N=262144, G=8 and at G=1, 32, 33, 300
+   and 4096, P=1, N no multiple of a block's span or below one chunk, every
+   row masked out, NaN/inf rows and ids outside [0, G) (counts exact, sums
+   within rtol 1e-4 / atol 1e-4, the JAX package's own kernel bound, NaN
+   exactly where the plain form has it; timed at G=8 and G=4096, library
+   call torch.bincount); hash_probe at q5's
    P=8, N=8388608, T=32 (table in shared memory) and T=1<<18 with 30%
    absent keys (table read through the read-only cache), exact (library
    call torch.take); dict_filter at q12's P=8, N=2097152, T=8, and T=4096
@@ -23,7 +26,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    sentinels only, ties everywhere), exact, at most 12 launches a call
    (library: two stable torch.sort passes); topk_select at [1, 2^20] with
    k = 1, 100, 1000 and 4096 (through the full sort) and ties at the cut,
-   exact (library: torch.topk(largest=False), timing only);
+   and at P=3 over random, descending, all-tie and all-sentinel rows of
+   1 to 2^20 lanes with k = 1, 100, 1000, 1024, 3000, 4096, exact, timed
+   at k=100 on the top-k stage's operands and on descending keys
+   (library: torch.topk(largest=False) of the key, timing only);
    segmented_scan at [1, 2^20]: i64 sum and max with a boundary about
    every 15 lanes, f64 max and min over NaN/+-0/+-inf, a row with no
    boundary, a boundary on every lane, and P > 1, rows below the tile
@@ -217,9 +223,9 @@ def _bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def _timings(kernel, plain, library, busy_ok: bool) -> dict:
+def _timings(kernel, plain, library, busy_ok: bool, plain_iters: int = 10) -> dict:
     """CUDA-event means of the kernel's wrapper (50 launches), its plain
-    form (10) and the library call (50); the device times of the kernel
+    form (`plain_iters`) and the library call (50); the device times of the kernel
     and of the library call from the checked profiler method (20 calls
     each), None when unchecked, with the kernel's device events per call
     by name (its launches, memsets and copies)."""
@@ -227,7 +233,7 @@ def _timings(kernel, plain, library, busy_ok: bool) -> dict:
     busy = device_busy_ms(kernel, 20, by_name=by_name) if busy_ok else None
     lib_busy = device_busy_ms(library, 20) if busy_ok else None
     return {"ms": cuda_ms(kernel, 50), "device_ms": None if busy is None else busy / 20,
-            "plain_ms": cuda_ms(plain, 10), "library_ms": cuda_ms(library, 50),
+            "plain_ms": cuda_ms(plain, plain_iters, warmup=1), "library_ms": cuda_ms(library, 50),
             "library_device_ms": None if lib_busy is None else lib_busy / 20,
             "device_events_per_call": {n[:60]: c / 20 for n, (_, c) in by_name.items()}}
 
@@ -327,80 +333,113 @@ def gather_phase(dev, busy_ok: bool) -> list[dict]:
     return records
 
 
+def _mgr_inputs(P: int, N: int, G: int, dev, rng, kind: str = "random"):
+    """masked_group_reduce inputs: "random" (ids in [0, G), 70% of rows
+    kept); "none" (every row masked out); "special" (NaN and +-inf
+    values, some masked out); "outside" (ids below 0 and at or past G)."""
+    import numpy as np
+    import torch
+
+    vals = rng.uniform(-5, 5, (P, N)).astype(np.float32)
+    gid = rng.integers(0, G, (P, N)).astype(np.int32)
+    mask = rng.random((P, N)) < 0.7
+    if kind == "none":
+        mask[:] = False
+    elif kind == "special":
+        for v, share in ((np.nan, 0.001), (np.inf, 0.001), (-np.inf, 0.001)):
+            vals[rng.random((P, N)) < share] = v
+    elif kind == "outside":
+        gid[rng.random((P, N)) < 0.2] = G
+        gid[rng.random((P, N)) < 0.1] = -1
+    return tuple(torch.as_tensor(x, device=dev) for x in (vals, gid, mask))
+
+
 def kernel_phase(dev, busy_ok: bool) -> dict:
-    """masked_group_reduce against its plain form at q4's shape and at a
-    multi-tile G. Returns the q4-shape timing record."""
+    """masked_group_reduce against its plain form at q4's shape and at the
+    edges (G = 1, 8, 32, 33, 300, 4096; P = 1 and 8; N no multiple of a
+    block's span, below one chunk; every row masked out; NaN and inf rows;
+    ids outside [0, G)): counts exact, sums within rtol 1e-4 with NaN
+    exactly where the plain form has it, reruns bitwise identical. Times
+    G = 8 (q4) and G = 4096 (the engine's cap), each beside its bound and
+    torch.bincount. Returns the q4-shape record, G = 4096 under "also"."""
     import numpy as np
     import torch
 
     from ballista_tpu_torch.ops.cuda import cuda_kernels as ck
 
     rng = np.random.default_rng(7)
-    record = None
-    for P, N, G in ((8, 262144, 8), (8, 262144, 300)):
-        vals = torch.as_tensor(rng.uniform(-5, 5, (P, N)).astype(np.float32), device=dev)
-        gid = torch.as_tensor(rng.integers(0, G, (P, N)).astype(np.int32), device=dev)
-        mask = torch.as_tensor(rng.random((P, N)) < 0.7, device=dev)
+    timed = {}
+    cases = [(8, 262144, G, "random") for G in (8, 4096, 1, 32, 33, 300)]
+    cases += [(1, 262144, 33, "random"), (8, 100003, 8, "random"), (8, 100003, 4096, "random"),
+              (3, 7, 8, "random"), (3, 7, 300, "random"), (8, 65536, 8, "none"),
+              (8, 65536, 4096, "none"), (8, 65536, 8, "special"), (8, 65536, 300, "special"),
+              (2, 65537, 8, "outside"), (2, 65537, 4096, "outside")]
+    for P, N, G, kind in cases:
+        vals, gid, mask = _mgr_inputs(P, N, G, dev, rng, kind)
         s1, c1 = ck.masked_group_reduce(vals, gid, mask, G)
         s2, c2 = ck.masked_group_reduce(vals, gid, mask, G)
         sp, cp = ck.masked_group_reduce_plain(vals, gid, mask, G)
         torch.cuda.synchronize()
-        if not (torch.equal(s1, s2) and torch.equal(c1, c2)):
-            raise AssertionError(f"masked_group_reduce G={G}: two runs differ bitwise")
+        what = f"masked_group_reduce P={P} N={N} G={G} {kind}"
+        if not (torch.equal(s1.view(torch.int32), s2.view(torch.int32)) and torch.equal(c1, c2)):
+            raise AssertionError(f"{what}: two runs differ bitwise")
         if not torch.equal(c1, cp):
-            raise AssertionError(f"masked_group_reduce G={G}: counts differ from the plain form")
-        if not torch.allclose(s1, sp, rtol=1e-4, atol=1e-4):
-            raise AssertionError(f"masked_group_reduce G={G}: sums differ from the plain form")
-        err = float((s1 - sp).abs().max())
-        log(f"masked_group_reduce P={P} N={N} G={G}: counts exact, "
-            f"max_abs_err={err:.3e}, reruns bitwise identical")
-        if record is not None:
+            raise AssertionError(f"{what}: counts differ from the plain form")
+        if not (torch.equal(torch.isnan(s1), torch.isnan(sp))
+                and torch.allclose(s1, sp, rtol=1e-4, atol=1e-4, equal_nan=True)):
+            raise AssertionError(f"{what}: sums differ from the plain form")
+        finite = torch.isfinite(sp)
+        err = float((s1 - sp)[finite].abs().max()) if bool(finite.any()) else 0.0
+        log(f"{what}: counts exact, max_abs_err={err:.3e}, reruns bitwise identical")
+        if kind != "random" or P != 8 or N != 262144 or G not in (8, 4096):
             continue
         key = (gid.long() + torch.arange(P, device=dev)[:, None] * G).flatten()
         weights = torch.where(mask, vals, 0.0).flatten()
-        ms = cuda_ms(lambda: ck.masked_group_reduce(vals, gid, mask, G), 50)
-        plain_ms = cuda_ms(lambda: ck.masked_group_reduce_plain(vals, gid, mask, G), 10)
-        library_ms = cuda_ms(lambda: torch.bincount(key, weights, minlength=P * G), 50)
-        # the events above time the stream, launch gaps included; the
-        # profiler gives the kernels' own device time
-        busy = (device_busy_ms(lambda: ck.masked_group_reduce(vals, gid, mask, G), 20)
-                if busy_ok else None)
-        device_ms = None if busy is None else busy / 20
-        n_bytes = P * N * (4 + 4 + 1) + P * G * (4 + 4)
-        n_ops = 2 * P * N  # one f32 add and one int add per row
-        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = n_ops / F32_OPS_PER_S * 1e3
-        record = {
-            "name": "masked_group_reduce", "route": "cuda",
+        rec = _timings(lambda: ck.masked_group_reduce(vals, gid, mask, G),
+                       lambda: ck.masked_group_reduce_plain(vals, gid, mask, G),
+                       lambda: torch.bincount(key, weights, minlength=P * G), busy_ok,
+                       plain_iters=10 if G <= 32 else 2)
+        # value, id and mask read (9 B a row), a sum and a count written a
+        # cell; one f32 add and one int add per row
+        rec["bound_ms"], rec["bound_by"] = _bound(P * N * 9 + P * G * 8, 2 * P * N)
+        rec.update(shape=[P, N, G], max_abs_err=err)
+        rec["launches_per_call"] = _kernel_launches(rec)
+        timed[G] = rec
+    main = timed[8]
+    main["also"] = timed[4096]
+    return {"name": "masked_group_reduce", "route": "cuda",
             "source": "ballista_tpu_torch/ops/cuda/csrc/masked_group_reduce.cu",
-            "replaces": "ballista_tpu/ops/tpu/pallas_kernels.py:125",
-            "shape": [P, N, G], "max_abs_err": err, "ms": ms, "device_ms": device_ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms,
-        }
-    return record
+            "replaces": "ballista_tpu/ops/tpu/pallas_kernels.py:125", **main}
 
 
 def _sort_inputs(P: int, N: int, dev, seed: int, a_hi: int = 1000, kind: str = "random"):
     """Triples with ties on a and on (a, b), positions 0..N-1 and a tail of
     (i64 max, i64 max) padding sentinels, as the sort stage pads. kind
     "ties": every lane equal but for pos; "sentinels": every lane a
-    padding sentinel, pos included."""
+    padding sentinel, pos included; "descending": a zero (the null-rank
+    plane of a non-null key) and b falling, so every lane is a new
+    minimum; "path": the top-k stage's operands, a zero and b a key in
+    [0, a_hi), with 1,000,000 real rows (one partsupp file at SF10) when
+    N = 2^20."""
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(seed)
     a = torch.randint(0, a_hi, (P, N), generator=g, dtype=torch.int64)
     b = torch.randint(0, 3, (P, N), generator=g, dtype=torch.int64)
     pos = torch.arange(N, dtype=torch.int32).repeat(P, 1)
-    pad = N // 8
+    if kind == "path":
+        a[:] = 0
+        b = torch.randint(0, a_hi, (P, N), generator=g, dtype=torch.int64)
+    pad = N - 1_000_000 if kind == "path" and N > 1_000_000 else N // 8
     if pad:
         a[:, -pad:] = 2**63 - 1
         b[:, -pad:] = 2**63 - 1
     if kind == "ties":
         a[:] = 7
         b[:] = 3
+    elif kind == "descending":
+        a[:] = 0
+        b[:] = torch.arange(N, 0, -1)
     elif kind == "sentinels":
         a[:] = 2**63 - 1
         b[:] = 2**63 - 1
@@ -493,33 +532,54 @@ def sort_family_phase(dev, busy_ok: bool) -> list[dict]:
                     "replaces": "ballista_tpu/ops/tpu/pallas_kernels.py:284",
                     "max_abs_err": 0.0, **main})
 
+    # the path's shape with ties at every cut (50 values), then the edges:
+    # random, descending, all ties and all sentinels; P = 3; rows from one
+    # lane to 2^20; C from 128 to 2048 through the filter, 4096 through the
+    # full sort
     N = 1 << 20
-    a, b, pos = _sort_inputs(1, N, dev, seed=5, a_hi=50)  # 50 values: ties at every cut
+    cases = [(1, N, "random", (1, 100, 1000, 4096), 50)]
+    cases += [(3, n, kind, (1, 100, 1000, 1024, 3000, 4096), 1000)
+              for kind in ("random", "descending", "ties", "sentinels")
+              for n in (1, 2, 512, 2048, 4096, N)]
+    for P, n, kind, ks, a_hi in cases:
+        a, b, pos = _sort_inputs(P, n, dev, seed=n + P + len(kind), a_hi=a_hi, kind=kind)
+        for k in ks:
+            r1 = ck.topk_select(a, b, pos, k)
+            r2 = ck.topk_select(a, b, pos, k)
+            rp = ck.topk_select_plain(a, b, pos, k)
+            torch.cuda.synchronize()
+            what = f"topk_select [{P}, {n}] {kind} k={k}"
+            if not all(torch.equal(x, y) for x, y in zip(r1, r2)):
+                raise AssertionError(f"{what}: two runs differ bitwise")
+            if not all(x.shape == (P, min(k, n)) and torch.equal(x, y) for x, y in zip(r1, rp)):
+                raise AssertionError(f"{what}: differs from the plain form")
+        log(f"topk_select [{P}, {n}] {kind} k={ks}: exact, reruns bitwise identical")
+        del a, b, pos
+    # timed on the top-k stage's operands (a zero for a non-null key, b the
+    # key: ps_supplycost in cents, pos the position), and on descending b
     topk = {}
-    for k in (1, 100, 1000, 4096):  # 4096: C above the tile, through the full sort
-        r1 = ck.topk_select(a, b, pos, k)
-        r2 = ck.topk_select(a, b, pos, k)
-        rp = ck.topk_select_plain(a, b, pos, k)
-        torch.cuda.synchronize()
-        if not all(torch.equal(x, y) for x, y in zip(r1, r2)):
-            raise AssertionError(f"topk_select k={k}: two runs differ bitwise")
-        if not all(x.shape == (1, k) and torch.equal(x, y) for x, y in zip(r1, rp)):
-            raise AssertionError(f"topk_select k={k}: differs from the plain form")
-        log(f"topk_select [1, {N}] k={k} (ties at the cut): exact, reruns bitwise identical")
-        if k != 100:
-            continue
-        rec = _timings(lambda k=k: ck.topk_select(a, b, pos, k),
-                       lambda k=k: ck.topk_select_plain(a, b, pos, k),
-                       lambda k=k: torch.topk(a, k, dim=-1, largest=False), busy_ok)
-        # the row read once (20 B a lane), k triples written; one compare a lane
-        rec["bound_ms"], rec["bound_by"] = _bound(N * 20 + k * 20, N)
-        rec.update(shape=[1, N], k=k)
-        topk[k] = rec
-    del a, b, pos
+    for kind in ("path", "descending"):
+        a, b, pos = _sort_inputs(1, N, dev, seed=5, a_hi=100_000, kind=kind)
+        k = 100
+        rec = _timings(lambda: ck.topk_select(a, b, pos, k),
+                       lambda: ck.topk_select_plain(a, b, pos, k),
+                       lambda: torch.topk(b, k, dim=-1, largest=False), busy_ok)
+        c = ck._topk_chunk(k, N)
+        # a and b of every lane read (a is the null-rank plane, so b decides,
+        # and pos is needed only where (a, b) passes), C triples written; one
+        # compare a lane. PR 3's bound read pos too: 20 B a lane.
+        rec["bound_ms"], rec["bound_by"] = _bound(N * 16 + c * 20, N)
+        rec["bound_ms_20B_a_lane"] = _bound(N * 20 + k * 20, N)[0]
+        rec.update(shape=[1, N], k=k, input=kind)
+        rec["launches_per_call"] = _kernel_launches(rec)
+        topk[kind] = rec
+        del a, b, pos
+    main = topk["path"]
+    main["also"] = topk["descending"]
     records.append({"name": "topk_select", "route": "cuda",
                     "source": "ballista_tpu_torch/ops/cuda/csrc/topk_select.cu",
                     "replaces": "ballista_tpu/ops/tpu/pallas_kernels.py:351",
-                    "max_abs_err": 0.0, **topk[100]})
+                    "max_abs_err": 0.0, **main})
 
     scan = {}
     sum_err = {}

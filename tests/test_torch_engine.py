@@ -343,6 +343,43 @@ def test_gather_kernel_launch_failure_raises_out_of_collect(q, kernel, tpch_dir,
     assert all(s.fallback_count == 0 for s in stages)
 
 
+def test_filtered_nan_row_stays_out_of_every_group_under_fused_pallas(monkeypatch):
+    # ROADMAP C4: a NaN row that the WHERE clause removes must not reach any
+    # group's SUM through masked_group_reduce; the device engine answers as
+    # the port's CPU engine does. Values are halves, so the kernel's f32
+    # sums are exact and the answers equal.
+    from ballista_tpu_torch.client.context import SessionContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.ops.cuda import cuda_kernels
+
+    rng = np.random.default_rng(4)
+    n = 2000
+    x = rng.integers(-40, 40, n) / 2.0
+    keep = rng.random(n) < 0.8
+    x[17], keep[17] = np.nan, False
+    tbl = pa.table({"k": rng.choice(["a", "b", "c", "d", "e"], n), "x": x,
+                    "keep": keep.astype(np.int64)})
+    sql = "select k, sum(x) s, count(*) c from t where keep = 1 group by k order by k"
+    calls = []
+    real = cuda_kernels.masked_group_reduce
+
+    def counting(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(cuda_kernels, "masked_group_reduce", counting)
+    answers = []
+    for engine in ("tpu", "cpu"):
+        ctx = SessionContext(BallistaConfig({**BASE_CFG, "ballista.executor.engine": engine,
+                                             "ballista.tpu.fusion.mode": "fused_pallas"}))
+        ctx.register_arrow_table("t", tbl, partitions=2)
+        answers.append(ctx.sql(sql).collect())
+    got, want = answers
+    assert calls, "masked_group_reduce was not called"
+    assert not np.isnan(got.column("s").to_numpy()).any()
+    assert got.equals(want)
+
+
 # -- the JAX package's join tests (tests/test_tpu_engine.py), on the port --
 #
 # Each runs the port's engine=tpu with the device path asserted (no CPU

@@ -51,9 +51,12 @@ def _both(vals, gid, mask, G):
     return np.asarray(js), np.asarray(jc), ts.numpy(), tc.numpy()
 
 
-@pytest.mark.parametrize("P,N,G,seed", [(3, 512, 11, 7), (2, 256, 300, 11)])
+@pytest.mark.parametrize("P,N,G,seed", [(3, 512, 11, 7), (2, 256, 300, 11), (2, 384, 1, 13),
+                                         (3, 256, 33, 17), (1, 256, 4096, 19)])
 def test_masked_group_reduce_matches_pallas(P, N, G, seed):
-    # G=300 spans three 128-lane tiles of the Pallas kernel
+    # G=300 spans three 128-lane tiles of the Pallas kernel; G=1, 33 and
+    # 4096 sit at the Hopper kernel's edges (registers up to 32 groups,
+    # shared-memory bins above, up to MAX_GROUPS)
     vals, gid, mask = _inputs(seed, P, N, G)
     js, jc, ts, tc = _both(vals, gid, mask, G)
     assert ts.shape == js.shape == (P, G) and tc.shape == jc.shape == (P, G)
@@ -69,6 +72,34 @@ def test_masked_group_reduce_ignores_out_of_range_groups():
     js, jc, ts, tc = _both(vals, gid, mask, 16)
     np.testing.assert_array_equal(tc, jc)
     np.testing.assert_allclose(ts, js, rtol=1e-4, atol=1e-4)
+
+
+def test_masked_group_reduce_nan_stays_in_its_group():
+    # ROADMAP C4: the reference multiplies every row by a one-hot tile, so a
+    # NaN row that the mask removes, and an inf row, leak NaN (x 0) into
+    # every group; the port adds a row only into its own group, as both
+    # packages' CPU engines do
+    vals = np.ones((1, 256), np.float32)
+    gid = np.repeat(np.arange(2, dtype=np.int32), 128)[None, :]
+    mask = np.ones((1, 256), bool)
+    vals[0, 5] = np.nan
+    mask[0, 5] = False
+    vals[0, 200] = np.inf
+    js, jc, ts, tc = _both(vals, gid, mask, 3)
+    assert np.isnan(js).all()
+    np.testing.assert_array_equal(ts, [[127.0, np.inf, 0.0]])
+    np.testing.assert_array_equal(tc, jc)
+    np.testing.assert_array_equal(tc, [[127, 128, 0]])
+
+
+@pytest.mark.parametrize("P,N,G", [(8, 262144, 8), (8, 262144, 4096), (1, 5, 3),
+                                   (3, 1 << 20, 33), (1000, 64, 2)])
+def test_mgr_plan(P, N, G):
+    # spans are multiples of the kernel's 16-lane chunk and cover each row;
+    # about two blocks an SM in all for G <= 32, one above
+    blocks, span = ck.mgr_plan(P, N, G, 132)
+    assert span % ck.MGR_CHUNK == 0 and blocks * span >= N > (blocks - 1) * span
+    assert blocks == 1 or P * blocks <= (2 if G <= 32 else 1) * 132
 
 
 def test_masked_group_reduce_ceiling():
@@ -114,20 +145,43 @@ def test_align_promotes_like_jax():
     assert (a + b).tolist() == [2**40 + 1, 2**40 + 2, 2**40 + 3]
 
 
+def _mgr_edge_inputs(kind, P, N, G, seed=3):
+    """masked_group_reduce inputs of one kind: "random"; "none" (every row
+    masked out); "special" (NaN and inf rows, some of them masked out);
+    "outside" (ids below 0 and at or past G)."""
+    vals, gid, mask = _inputs(seed, P, N, G)
+    rng = np.random.default_rng(seed + 1)
+    if kind == "none":
+        mask[:] = False
+    elif kind == "special":
+        for v, share in ((np.nan, 0.001), (np.inf, 0.001), (-np.inf, 0.001)):
+            vals[rng.random((P, N)) < share] = v
+    elif kind == "outside":
+        gid[rng.random((P, N)) < 0.2] = G
+        gid[rng.random((P, N)) < 0.1] = -1
+        gid[rng.random((P, N)) < 0.05] = 1 << 30
+    return vals, gid, mask
+
+
 @pytest.mark.gpu
-def test_cuda_kernel_matches_plain_form():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card")
-    dev = torch.device("cuda", 0)
-    for G in (8, 300):
-        vals, gid, mask = (torch.from_numpy(a).to(dev) for a in _inputs(3, 8, 262144, G))
+@pytest.mark.parametrize("G", [1, 8, 32, 33, 300, 4096])
+def test_cuda_kernel_matches_plain_form(G):
+    # (P, N, kind): q4's shape; one row; N no multiple of a block's span or
+    # of the 16-lane chunk; N below one chunk; every row masked out; NaN and
+    # inf rows; ids outside [0, G)
+    dev = _on_card()
+    for P, N, kind in ((8, 262144, "random"), (1, 262144, "random"), (8, 100003, "random"),
+                       (3, 7, "random"), (8, 65536, "none"), (8, 65536, "special"),
+                       (2, 65537, "outside")):
+        vals, gid, mask = (torch.from_numpy(a).to(dev) for a in _mgr_edge_inputs(kind, P, N, G))
         s1, c1 = ck.masked_group_reduce(vals, gid, mask, G)
         s2, c2 = ck.masked_group_reduce(vals, gid, mask, G)
         sp, cp = ck.masked_group_reduce_plain(vals, gid, mask, G)
         torch.cuda.synchronize()
-        assert torch.equal(s1, s2) and torch.equal(c1, c2)  # fixed-order sums
-        assert torch.equal(c1, cp)
-        torch.testing.assert_close(s1, sp, rtol=1e-4, atol=1e-4)
+        assert torch.equal(s1.view(torch.int32), s2.view(torch.int32))  # fixed-order sums
+        assert torch.equal(c1, c2) and torch.equal(c1, cp)
+        torch.testing.assert_close(s1, sp, rtol=1e-4, atol=1e-4, equal_nan=True)
+        assert torch.equal(torch.isnan(s1), torch.isnan(sp))
 
 
 # -- hash_probe ---------------------------------------------------------------
@@ -546,11 +600,16 @@ def test_scan_plan(P, N):
 
 
 def _sort_edge_inputs(kind, P, N, seed=9):
-    """Sort inputs of one kind: "random" (ties on a and b), "ties" (every
-    lane equal but for pos) and "sentinels" (every lane a padding
-    sentinel, pos included)."""
+    """Sort inputs of one kind: "random" (ties on a and b), "descending"
+    (a zero, as the null-rank plane of a non-null key, and b falling:
+    every lane a new minimum), "ties" (every lane equal but for pos) and
+    "sentinels" (every lane a padding sentinel, pos included)."""
     a, b, pos = _sort_inputs(seed, P, N, a_hi=1000)
-    if kind == "ties":
+    if kind == "descending":
+        a[:] = 0
+        b[:] = np.arange(N, 0, -1)
+        pos[:] = np.arange(N, dtype=np.int32)
+    elif kind == "ties":
         a[:] = 7
         b[:] = 3
     elif kind == "sentinels":
@@ -600,14 +659,65 @@ def test_cuda_sort_family_from_concurrent_threads():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [1, 100, 1000, 3000, 4096])
-def test_cuda_topk_select_matches_plain_form(k):
+@pytest.mark.parametrize("kind", ["random", "descending", "ties", "sentinels"])
+@pytest.mark.parametrize("N", [1, 2, 512, 2048, 4096, 1 << 20])
+def test_cuda_topk_select_matches_plain_form(N, kind):
+    # k up to 2048 through the filter (C = 1024 and 2048 at k = 1000 and
+    # 1024... 2048), above it through the full sort; P = 3
     dev = _on_card()
-    a, b, pos = (torch.from_numpy(x).to(dev) for x in _sort_inputs(k, 1, 1 << 20, a_hi=50))
-    r1 = ck.topk_select(a, b, pos, k)
-    rp = ck.topk_select_plain(a, b, pos, k)
-    torch.cuda.synchronize()
-    assert all(torch.equal(x, z) for x, z in zip(r1, rp))
+    a, b, pos = (torch.from_numpy(x).to(dev) for x in _sort_edge_inputs(kind, 3, N, seed=N))
+    for k in (1, 100, 1000, 1024, 3000, 4096):
+        r1 = ck.topk_select(a, b, pos, k)
+        r2 = ck.topk_select(a, b, pos, k)
+        rp = ck.topk_select_plain(a, b, pos, k)
+        torch.cuda.synchronize()
+        assert all(x.shape == (3, min(k, N)) for x in r1)
+        assert all(torch.equal(x, y) and torch.equal(x, z) for x, y, z in zip(r1, r2, rp))
+
+
+@pytest.mark.parametrize("P,N,C", [(1, 1 << 20, 128), (3, 1 << 20, 1024), (1, 1, 1),
+                                   (2, 2048, 2048), (8, 4096, 128), (200, 1 << 14, 128),
+                                   (1, 1 << 20, 4096)])
+def test_topk_plan(P, N, C):
+    # filter spans are multiples of a block's step and cover each row, about
+    # one block an SM in all; scratch holds the blocks' lists (20 B a lane,
+    # each i64 array rounded up to 16 B) and 16 levels of tickets a block, or
+    # for C above the filter's capacity the full sort's two triples
+    blocks, span, n_bytes = ck.topk_plan(P, N, C, 132)
+    if C > ck.TOPK_CAP:
+        assert (blocks, span) == (0, 0) and n_bytes == 40 * (P * N + (P * N) % 2)
+        return
+    assert span % ck.TOPK_STEP == 0 and blocks * span >= N > (blocks - 1) * span
+    assert blocks == 1 or P * blocks <= 132
+    lanes = P * blocks * C
+    assert n_bytes == (0 if blocks == 1 else 20 * (lanes + lanes % 2) + 64 * P * blocks)
+
+
+@pytest.mark.gpu
+def test_cuda_select_and_reduce_from_concurrent_threads():
+    # topk_select's candidates and tickets and masked_group_reduce's
+    # partials are scratch of each call: 16 threads on one stream must each
+    # get their own answers
+    from concurrent.futures import ThreadPoolExecutor
+
+    dev = _on_card()
+
+    def one(seed):
+        a, b, pos = (torch.from_numpy(x).to(dev)
+                     for x in _sort_edge_inputs("random", 1, 1 << 18, seed=seed))
+        G = (8, 4096)[seed % 2]
+        vals, gid, mask = (torch.from_numpy(x).to(dev) for x in _inputs(seed, 8, 1 << 15, G))
+        got = ck.topk_select(a, b, pos, 100), ck.masked_group_reduce(vals, gid, mask, G)
+        want = (ck.topk_select_plain(a, b, pos, 100),
+                ck.masked_group_reduce_plain(vals, gid, mask, G))
+        torch.cuda.synchronize()
+        return (all(torch.equal(x, y) for x, y in zip(got[0], want[0]))
+                and torch.equal(got[1][1], want[1][1])
+                and torch.allclose(got[1][0], want[1][0], rtol=1e-4, atol=1e-4))
+
+    for _ in range(3):
+        with ThreadPoolExecutor(16) as pool:
+            assert all(pool.map(one, range(32)))
 
 
 @pytest.mark.gpu
