@@ -14,7 +14,9 @@ final-aggregate + ORDER BY stages (TpuFinalStageExec), partial aggregates
 over a Filter/Projection/collected-join chain (TpuStageExec), then, behind
 `ballista.tpu.sort.enabled`, the standalone ORDER BY [LIMIT] stages
 (TpuSortStageExec) and window stages (TpuWindowStageExec) of the sort
-family (ops/cuda/sort_window.py).
+family (ops/cuda/sort_window.py). Where the plan's root is a shuffle
+writer hash-partitioning a TpuStageExec's group columns, the stage emits
+the partition ids itself (_wire_device_routing).
 """
 
 from __future__ import annotations
@@ -119,7 +121,47 @@ def maybe_compile_tpu(physical: ExecutionPlan, config: BallistaConfig) -> Execut
             return node
         return node.with_children(new_kids)
 
-    return walk(physical)
+    out = walk(physical)
+    _wire_device_routing(out)
+    return out
+
+
+def _wire_device_routing(root: ExecutionPlan) -> None:
+    """When a stage's root shuffle writer hash-partitions on columns of a
+    TpuStageExec's output, tell the stage to emit a device-computed __pid
+    column (the writer consumes it and skips host hashing). Sorted-path
+    stages honor it; others ignore it."""
+    from ballista_tpu_torch.ops.cuda.stage_compiler import TpuStageExec
+    from ballista_tpu_torch.plan.expressions import Alias as _Alias
+    from ballista_tpu_torch.plan.expressions import Column as _Column
+    from ballista_tpu_torch.shuffle.writer import ShuffleWriterExec
+
+    if not isinstance(root, ShuffleWriterExec) or root.output_partitions <= 0:
+        return
+    # the stage must feed the writer DIRECTLY: an intervening operator
+    # (CoalesceBatches etc.) re-asserts its declared schema and would choke
+    # on the extra __pid column
+    node = root.input
+    if not isinstance(node, TpuStageExec):
+        return
+    schema = node.df_schema
+    if any(f.name == "__pid" for f in schema):
+        return  # never shadow a user column
+    n_group = len(node.partial_agg.group_exprs)
+    idxs: list[int] = []
+    for k in root.keys:
+        kc = k.expr if isinstance(k, _Alias) else k
+        if not isinstance(kc, _Column):
+            return
+        i = schema.maybe_index_of(kc.name, kc.qualifier)
+        if i is None:
+            i = schema.maybe_index_of(kc.name, None)
+        if i is None or i >= n_group:
+            return  # key is not a group output column
+        idxs.append(i)
+    if idxs:
+        node.emit_pid = (idxs, root.output_partitions)
+        root.device_routed = True  # writer honors __pid only when flagged
 
 
 def _match_chain(node: ExecutionPlan):

@@ -84,6 +84,42 @@ def true_mask(v: DevVal):
     return v.arr & v.valid
 
 
+# -- bit-exact twin of ops/hashing.py ---------------------------------------
+#
+# Torch has no uint64 arithmetic to speak of, so the hash runs on int64
+# lanes holding the same 64 bits: additions and multiplications wrap alike
+# in two's complement, and a logical right shift is the arithmetic one with
+# the sign-extended bits masked off.
+
+_GOLDEN = 0x9E3779B97F4A7C15 - (1 << 64)  # as a signed int64
+_MIX1 = 0xBF58476D1CE4E5B9 - (1 << 64)
+_MIX2 = 0x94D049BB133111EB - (1 << 64)
+
+
+def _shr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 lanes read as uint64."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def hash64(x: torch.Tensor) -> torch.Tensor:
+    """splitmix64 over int64 lanes read as uint64 (ops/hashing.splitmix64)."""
+    x = x.to(torch.int64) + _GOLDEN
+    x = (x ^ _shr(x, 30)) * _MIX1
+    x = (x ^ _shr(x, 27)) * _MIX2
+    return x ^ _shr(x, 31)
+
+
+def hash_combine(h: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """ops/hashing.hash_combine over int64 lanes read as uint64."""
+    return h ^ (v + _GOLDEN + (h << 6) + _shr(h, 2))
+
+
+def umod(h: torch.Tensor, k: int) -> torch.Tensor:
+    """`h % k` with h read as uint64 (k > 0): the high 63 bits first, then
+    the low bit, so no intermediate leaves int64."""
+    return ((_shr(h, 1) % k) * 2 + (h & 1)) % k
+
+
 def take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """`table[idx]` with XLA's gather semantics: a negative index wraps
     once, then every index clamps into [0, len)."""

@@ -27,11 +27,18 @@ model is the reference's:
 Output batches match the partial aggregate's schema exactly, so the
 downstream repartition/final-aggregate machinery is engine-agnostic.
 
+Group keys outside the small dictionary domains go through the sorted
+segmented aggregation (_compile_sorted): a stable lexicographic sort of
+the live rows, segment totals, one compaction, all partitions decoded into
+output partition 0, with an optional device-computed `__pid` shuffle
+column. `staged` mode runs the predicate, project and aggregate spans as
+separate dispatches (_compile_staged).
+
 Any other shape raises `Unsupported` and the subtree re-runs on the CPU
-engine, counted in `fallback_count`: sorted-mode builds, the sorted
-large-domain aggregation, the staged mode, the mesh, the daemon, and the
-spill and grace rungs. Only `Unsupported` falls back: a kernel build or
-launch error, or a missing card, raises out of the query.
+engine, counted in `fallback_count`: a group capacity overflow, the mesh,
+the daemon, and the spill and grace rungs. Only `Unsupported` falls back:
+a kernel build or launch error, or a missing card, raises out of the
+query.
 """
 
 from __future__ import annotations
@@ -65,9 +72,12 @@ from ballista_tpu_torch.ops.cuda.kernels import (
     DevVal,
     Lowering,
     Unsupported,
+    hash64,
+    hash_combine,
     lower_expr,
     take,
     true_mask,
+    umod,
 )
 from ballista_tpu_torch.plan.expressions import Alias, Column, Expr
 from ballista_tpu_torch.plan.physical import (
@@ -110,12 +120,15 @@ class RunStats:
     Keys the port fills: fill_s (whole device fill), encode_s (host encode
     wall), upload_s (host→card copies), device_bytes, build_s (join build
     sides: host collect + encode + upload, or the build-cache hits), exec_s
-    (dispatch + fetch + decode), fused_kernel_s (device seconds of the
-    stage pass),
-    fusion_mode (fused_xla | fused_pallas — the mode that actually ran),
-    fusion_reason (the cost model's stated rationale), fused_spans
-    (operator spans run in the stage pass), hbm_budget_bytes, hbm_plan
-    (run_whole | cpu_demote) and hbm_plan_reason."""
+    (dispatch + fetch + decode), build_modes (direct | sorted per join
+    build), fused_kernel_s (device seconds of the
+    stage pass), span_s (staged mode: predicate / project / aggregate
+    seconds), fusion_mode (fused_xla | fused_pallas | staged — the mode
+    that actually ran), fusion_reason (the cost model's stated rationale),
+    fused_spans (operator spans run in the stage pass), hbm_budget_bytes,
+    hbm_plan (run_whole | cpu_demote) and hbm_plan_reason; the sorted
+    aggregation adds sort_s (device seconds of its sort), live_rows (rows
+    sorted), n_seg (groups) and seg_capacity (C)."""
 
     _MAX_STAGES = 32
 
@@ -168,6 +181,11 @@ class RunStats:
         with self._lock:
             return {t: dict(r) for t, r in self._stages.items()}
 
+    def clear(self) -> None:
+        with self._lock:
+            self._merged.clear()
+            self._stages.clear()
+
 
 RUN_STATS = RunStats()
 
@@ -176,23 +194,27 @@ DIRECT_TABLE_MAX = 1 << 27  # 128M entries × int32 = 512 MB ceiling
 
 MAX_JOIN_DUP = 16  # expansion joins unroll this many match lanes at most
 
+SORTED_MAX_GROUPS = 1 << 22  # the sorted aggregation's group capacity ceiling
+
 
 class BuildTable:
-    """A join's build side, encoded for device probing (the reference's
-    'direct' mode; its 'sorted' mode, for key ranges past
-    DIRECT_TABLE_MAX, is not ported and raises Unsupported at build time).
+    """A join's build side, encoded for device probing.
 
-    Keys are dense-enough ints → a [T] int32 lookup table (key → build row,
-    -1 absent): ONE gather per probe. Non-unique build keys (dup > 1,
-    "expansion joins"): the payloads are laid out key-sorted and the lookup
-    yields (first row, count) from the lo/cnt tables; the probe pipeline
-    unrolls dup match lanes (d < count masks) so each probe row can emit up
-    to dup joined rows into the agg."""
+    'direct' mode — keys are dense-enough ints → a [T] int32 lookup table
+    (key → build row, -1 absent): ONE gather per probe. Non-unique build
+    keys (dup > 1, "expansion joins"): the payloads are laid out key-sorted
+    and the lookup yields (first row, count) from the lo/cnt tables; the
+    probe pipeline unrolls dup match lanes (d < count masks) so each probe
+    row can emit up to dup joined rows into the agg. 'sorted' mode (a key
+    range past DIRECT_TABLE_MAX) — [B] int64 keys, sorted and padded with
+    int64 max, payloads in the same order: probes binary-search."""
 
     def __init__(self, mode, keys, payloads, kinds, scales, dicts, n_rows,
                  dup=1, cnt=None, pay_valids=None):
-        self.mode = mode  # direct
-        self.keys = keys  # int32 [T] row (dup == 1) or lo (dup > 1) table
+        self.mode = mode  # direct | sorted
+        # direct: int32 [T] row (dup == 1) or lo (dup > 1) table;
+        # sorted: int64 [B] sorted keys
+        self.keys = keys
         self.payloads = payloads  # per column, padded to B (unique: original order)
         self.kinds = kinds
         self.scales = scales
@@ -486,6 +508,11 @@ class TpuStageExec(ExecutionPlan):
         self.buckets = config.shape_buckets()
         self.fallback_count = 0
         self.tpu_count = 0
+        # device-side shuffle routing: (output-schema key indices, K) set by
+        # the engine when the parent shuffle writer hash-partitions on group
+        # columns; the sorted path then emits a __pid column
+        self.emit_pid: tuple[list[int], int] | None = None
+        self.pid_emitted = 0
         self._results: dict[int, list[pa.RecordBatch]] | None = None
         self._results_lock = threading.Lock()
         # partitions served since the last (re-)dispatch: once every resident
@@ -684,26 +711,37 @@ class TpuStageExec(ExecutionPlan):
 
         max_key = int(key_np.max())
         min_key = int(key_np.min())
-        if not (min_key >= 0 and max_key + 1 <= DIRECT_TABLE_MAX):
-            raise Unsupported("sorted-mode build (key range past the direct table) is not ported")
-        T = _pow2(max_key + 1)
+        direct = min_key >= 0 and max_key + 1 <= DIRECT_TABLE_MAX
         cnt_np = None
-        if dup == 1:
+        if dup == 1 and direct:
+            T = _pow2(max_key + 1)
             table = np.full(T, -1, dtype=np.int32)
             table[key_np] = np.arange(len(key_np), dtype=np.int32)
             keys_np = table
             order = np.arange(len(key_np))
-        else:
+            mode = "direct"
+        elif direct:
             # expansion layout: payloads key-sorted; lo/cnt tables give each
             # probe its first matching row and its match count
             order = np.argsort(key_np, kind="stable")
             sorted_keys = key_np[order]
+            T = _pow2(max_key + 1)
             lo_table = np.zeros(T, dtype=np.int32)
             cnt_table = np.zeros(T, dtype=np.int32)
             lo_table[uniq] = np.searchsorted(sorted_keys, uniq).astype(np.int32)
             cnt_table[uniq] = counts.astype(np.int32)
             keys_np = lo_table
             cnt_np = cnt_table
+            mode = "direct"
+        else:
+            # sorted layout, for key ranges past the direct table: the keys
+            # sorted (stably, so payloads keep their order within a key) and
+            # padded to a power of two with int64 max; probes binary-search
+            order = np.argsort(key_np, kind="stable")
+            sorted_keys = key_np[order]
+            keys_np = np.full(_pow2(len(sorted_keys)), np.iinfo(np.int64).max, dtype=np.int64)
+            keys_np[: len(sorted_keys)] = sorted_keys
+            mode = "sorted"
         B = _pow2(len(key_np))
 
         kinds, scales, dicts, payloads, pay_valids, pay_pos = [], [], [], [], [], []
@@ -740,7 +778,7 @@ class TpuStageExec(ExecutionPlan):
                     pay_valids.append(pv)
 
         bt = BuildTable(
-            "direct", _put(keys_np, device), [_put(p, device) for p in payloads],
+            mode, _put(keys_np, device), [_put(p, device) for p in payloads],
             kinds, scales, dicts, len(order), dup=dup,
             cnt=None if cnt_np is None else _put(cnt_np, device),
             pay_valids=[None if v is None else _put(v, device) for v in pay_valids],
@@ -766,7 +804,8 @@ class TpuStageExec(ExecutionPlan):
         Lowering builds closures only (PyTorch runs eagerly), so nothing is
         cached but the device LUTs. Returns (meta, device outputs)."""
         fn, lowering, meta = self._compile(dt, builds, mode_req)
-        lut_key = (table_key, self.fingerprint, str(dt.mask.device))
+        emit_key = (tuple(self.emit_pid[0]), self.emit_pid[1]) if self.emit_pid else None
+        lut_key = (table_key, self.fingerprint, emit_key, str(dt.mask.device))
         luts = _LUT_CACHE.get(lut_key)
         if luts is None:
             luts = [_put(l, dt.mask.device)
@@ -777,7 +816,18 @@ class TpuStageExec(ExecutionPlan):
                             [b.flat_arrays() for b in builds])
         if dt.mask.device.type == "cuda":
             torch.cuda.synchronize(dt.mask.device)
-        rec["fused_kernel_s"] = round(time.time() - t0, 6)
+        span_s = run_meta.get("span_s")
+        # device seconds of the stage pass: the synchronized dispatch, or
+        # the staged spans' sum
+        rec["fused_kernel_s"] = round(sum(span_s.values()) if span_s
+                                      else time.time() - t0, 6)
+        if span_s:
+            rec["span_s"] = {k: round(v, 6) for k, v in span_s.items()}
+        if meta["mode"] == "sorted":
+            rec["sort_s"] = round(run_meta.pop("sort_clock")(), 6)
+            rec["n_seg"] = run_meta["n_seg"]
+            rec["seg_capacity"] = run_meta["C"]
+            rec["live_rows"] = run_meta["live_rows"]
         return {**meta, **run_meta}, outs
 
     def _run_stage(self, dt: DeviceTable, builds: list[BuildTable], table_key,
@@ -819,6 +869,7 @@ class TpuStageExec(ExecutionPlan):
         builds = [self._prepare_build(op, jidx, ctx, table_key, device)
                   for jidx, op in enumerate(join_ops)]
         rec["build_s"] = round(time.time() - t_b, 6)
+        rec["build_modes"] = [b.mode for b in builds]
 
         dec, est = self._fusion_decision(dt, builds)
         rec["fusion_reason"] = dec.reason
@@ -840,7 +891,8 @@ class TpuStageExec(ExecutionPlan):
         rec["fusion_mode"] = meta.get("fusion_mode", "fused_xla")
         rec["fused_spans"] = meta.get("fused_spans", 0)
         outs = [o.cpu().numpy() for o in outs]  # one fetch per output
-        res = self._decode_all(outs, meta, dt.shape[0], dt.dicts, [b.dicts for b in builds])
+        decode = self._decode_sorted if meta["mode"] == "sorted" else self._decode_all
+        res = decode(outs, meta, dt.shape[0], dt.dicts, [b.dicts for b in builds])
         rec["exec_s"] = round(time.time() - t0, 6)
         return res
 
@@ -854,8 +906,6 @@ class TpuStageExec(ExecutionPlan):
         from ballista_tpu_torch.ops.cuda.cuda_kernels import MAX_GROUPS as _KERNEL_MAX_G
         from ballista_tpu_torch.plan.physical import HashJoinExec
 
-        if mode_req == "staged":
-            raise Unsupported("the staged fusion mode is not ported")
         agg = self.partial_agg
         scan_schema = self.scan.df_schema
         kinds = list(zip(dt.kinds, dt.scales))
@@ -1062,9 +1112,9 @@ class TpuStageExec(ExecutionPlan):
             raise Unsupported(f"{len(lane_sets)} expansion-join lanes > {MAX_JOIN_DUP}")
 
         # Group-key strategy: small dictionary domains unroll into per-group
-        # masked reductions. Everything else (int64 keys, composite keys,
-        # big dictionaries, nullable keys) needs the sorted segmented
-        # reduction, which is not ported.
+        # masked reductions. Everything else (int64 keys like l_orderkey,
+        # composite keys, big dictionaries, nullable keys) goes through the
+        # sort-based segmented reduction (_compile_sorted).
         def _slot_nullable(slot) -> bool:
             if isinstance(slot, tuple) and slot[0] == "build":
                 if slot[1] in outer_jidx:
@@ -1088,7 +1138,8 @@ class TpuStageExec(ExecutionPlan):
                 unrolled = False
                 break
             if _slot_nullable(gmeta[3]):
-                # a NULL group key needs its own group: the unrolled
+                # a NULL group key needs its own group: the sorted path
+                # carries validity as an extra sort operand; the unrolled
                 # code-domain form cannot tell null from code 0
                 unrolled = False
                 break
@@ -1119,8 +1170,6 @@ class TpuStageExec(ExecutionPlan):
             )
             if not pallas_agg_ok:
                 unrolled = False
-        if not unrolled:
-            raise Unsupported("sorted large-domain aggregation is not ported")
 
         agg_fns = []
         agg_modes = []  # "row" | "build_cnt" (count of a mult-join build col)
@@ -1140,7 +1189,27 @@ class TpuStageExec(ExecutionPlan):
                 agg_fns.append(lower_expr(d.expr, ctx) if d.expr is not None else None)
                 agg_modes.append("row")
 
+        if not unrolled:
+            group_fns = [lower_expr(g, ctx) for g in agg.group_exprs]
+            # each key's pre-run meta (kind, scale, dict, slot): the slot
+            # resolves the live dictionary at decode, the dict the __pid
+            # string LUT
+            key_premeta: list = []
+            for g in agg.group_exprs:
+                gc = g.expr if isinstance(g, Alias) else g
+                key_premeta.append(
+                    ctx.env_meta[cur_schema.index_of(gc.name, gc.qualifier)]
+                    if isinstance(gc, Column) else None)
+            mult = (mult_weight_fn, mult_outer) if mult_weight_fn is not None else None
+            fn_s, meta_s = self._compile_sorted(
+                ctx, P * dt.shape[1], filter_fns, lane_sets, lane_cells, memo,
+                group_fns, agg_fns, key_premeta, agg_modes, mult)
+            meta_s["fusion_mode"] = "fused_xla"
+            meta_s["fused_spans"] = len(spans)
+            return fn_s, ctx, meta_s
+
         meta = {
+            "mode": "unrolled",
             "fused_spans": len(spans),
             "group_src_slots": group_src_slots,
             "pad_sizes": pad_sizes,
@@ -1259,6 +1328,10 @@ class TpuStageExec(ExecutionPlan):
                 raise Unsupported(f"pallas-ineligible aggregation at G={G}")
             return aggregate_lane(m, gid, vs, w, m_eff)
 
+        if mode_req == "staged" and n_lanes == 1 and mult_weight_fn is None:
+            return self._compile_staged(eval_pred, eval_proj, aggregate_lane,
+                                        lane_sets, lane_cells, memo, meta), ctx, meta
+
         def raw(cols, luts, mask, build_args):
             # keep [P, N]: partitions are the leading axis, reductions run
             # over dim=1. Build arrays are appended after the scan columns.
@@ -1295,6 +1368,409 @@ class TpuStageExec(ExecutionPlan):
             return list(outs) + list(nullcnts) + [presence], info
 
         return raw, ctx, meta
+
+    def _compile_staged(self, eval_pred, eval_proj, aggregate_lane, lane_sets,
+                        lane_cells, memo, meta):
+        """Per-span dispatches — the always-available fallback mode and the
+        roofline instrument.
+
+        The predicate, project and aggregate spans run one after another,
+        each synchronized, so `span_s` shows where a stage's time goes. The
+        spans call the SAME closures the fused form composes (eval_pred /
+        eval_proj / aggregate_lane), so staged and fused_xla results are
+        byte-identical; the price is materializing the predicate mask and
+        every projected value lane between the spans. Single expansion lane,
+        no multiplicity weight (the caller's gate)."""
+        meta.update({"fusion_mode": "staged", "fused_spans": 0})
+
+        def staged(cols, luts, mask, build_args):
+            cols = list(cols) + [a for b in build_args for a in b]
+            for cell, d_ in zip(lane_cells, lane_sets[0]):
+                cell["d"] = d_
+            dev = mask.device
+
+            def span(fn):
+                memo.clear()  # no span reuses another's lookups
+                t0 = time.time()
+                out = fn()
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                return out, time.time() - t0
+
+            try:
+                m, t_pred = span(lambda: eval_pred(cols, luts, mask))
+
+                def project():
+                    gid, vs = eval_proj(cols, luts)
+                    if gid is not None:
+                        gid = torch.broadcast_to(gid, mask.shape).contiguous()
+                    return gid, [
+                        None if v is None else DevVal(
+                            v.kind, torch.broadcast_to(v.arr, mask.shape).contiguous(),
+                            v.scale, valid=None if v.valid is None else
+                            torch.broadcast_to(v.valid, mask.shape).contiguous())
+                        for v in vs]
+
+                (gid, vs), t_proj = span(project)
+                (outs, nullcnts, presence, info), t_agg = span(
+                    lambda: aggregate_lane(m, gid, vs, None, None))
+            finally:
+                memo.clear()
+            info = {**info, "fusion_mode": "staged",
+                    "span_s": {"predicate": t_pred, "project": t_proj, "aggregate": t_agg}}
+            return list(outs) + list(nullcnts) + [presence], info
+
+        return staged
+
+    def _compile_sorted(self, ctx: Lowering, PN: int, filter_fns, lane_sets, lane_cells,
+                        memo, group_fns, agg_fns, key_premeta, agg_modes, mult):
+        """Sort-based segmented reduction for large or non-dictionary group
+        domains (the reference's _compile_sorted).
+
+        Expansion lanes concatenate into one row set of M = P·N·lanes rows,
+        flattened row-major. A lexicographic stable sort over (invalid,
+        key operands...) carries the agg payloads; segment boundaries come
+        from adjacent-key differences; integer sums and counts are exact
+        int64 cumsum-subtracts, float sums, min and max the segmented scan
+        in `jax.lax.associative_scan`'s association order, and Welford
+        mean/M2 two passes over the segments. One compaction per output
+        fills a capacity of C = min(pow2(M), 2^22) groups; more groups raise
+        Unsupported (the stage re-runs on the CPU engine).
+
+        The invalid flag is the most significant sort key, so the sort is
+        taken as a stable partition (the live rows, in row order) followed
+        by stable sorts of the live rows from the last key operand to the
+        first. The dead rows sort last and touch no output, and every
+        result at a live row depends only on the rows before it, so the
+        outputs equal those of sorting all M rows. The sort, scans and
+        compaction are plain torch calls (they are XLA operations, outside
+        any Pallas kernel, in the reference)."""
+        from ballista_tpu_torch.ops.cuda.final_stage import _lexsort, _segscan
+
+        aggs = self.partial_agg.aggs
+        key_slots = [pm[3] if pm is not None else None for pm in key_premeta]
+        M = PN * len(lane_sets)
+        C = min(_pow2(M), SORTED_MAX_GROUPS)
+        # device-side shuffle routing: a __pid column over the compacted
+        # rows (bit-exact twin of ops/hashing.py; string keys hash through
+        # per-dictionary FNV LUTs, registered here, before the LUTs upload)
+        emit_keys: list[int] | None = None
+        emit_k = 0
+        emit_luts: dict[int, int] = {}
+        if self.emit_pid is not None:
+            idxs, emit_k = self.emit_pid
+            if all(0 <= i < len(group_fns) for i in idxs) and emit_k > 0:
+                emit_keys = list(idxs)
+                from ballista_tpu_torch.ops.hashing import fnv1a_str
+
+                for ki in emit_keys:
+                    pm = key_premeta[ki]
+                    if pm is None:
+                        emit_keys = None
+                        break
+                    if pm[0] == "code":
+                        emit_luts[ki] = ctx.add_lut(
+                            pm[3],
+                            lambda dic: np.array(
+                                [fnv1a_str(x) for x in (dic or [])], dtype=np.uint64
+                            ).view(np.int64),
+                        )
+
+        def lane_rows(cols, luts, mask):
+            """One expansion lane's (valid, key operands, payloads), each
+            flattened to [P·N], with the key and payload plans."""
+            m = mask
+            for ff in filter_fns:
+                m = m & true_mask(ff(cols, luts))
+            keyops = []
+            key_meta = []  # per key: (kind, scale, slot, has_null)
+            for gf, slot in zip(group_fns, key_slots):
+                v = gf(cols, luts)
+                if v.kind == "f64":
+                    raise Unsupported("f64 group key")
+                if v.kind == "code" and slot is None:
+                    raise Unsupported("code group key without a dictionary slot")
+                arr = v.arr.to(torch.int32) if v.arr.dtype == torch.bool else v.arr
+                has_null = v.valid is not None
+                if has_null:
+                    # a NULLABLE key contributes two operands — a null
+                    # marker, then the (filled) value — so NULL forms its
+                    # own group without a sentinel value
+                    marker = ~torch.broadcast_to(v.valid, mask.shape)
+                    keyops.append(marker.reshape(-1).to(torch.int32))
+                keyops.append(torch.broadcast_to(arr, mask.shape).reshape(-1))
+                key_meta.append((v.kind, v.scale, slot, has_null))
+            w_b = m_eff = None
+            if mult is not None:
+                wfn, mouter = mult
+                w_b = torch.broadcast_to(wfn(cols, luts), mask.shape)
+                m_eff = torch.clamp(w_b, min=1) if mouter else w_b
+            pays = []
+            pay_plan = []  # per agg: (payload index | None, valid-count index | None)
+            out_meta = []
+            # the welford (mean, m2) pair shares one expression object: its
+            # value and validity lanes ride through the sort once
+            welford_pay: dict[int, tuple] = {}
+            for ai, (d, af) in enumerate(zip(aggs, agg_fns)):
+                if agg_modes[ai] == "build_cnt":
+                    # count of a mult-join build column == match count
+                    out_meta.append(("i64", 0))
+                    pays.append(w_b.reshape(-1).to(torch.int64))
+                    pay_plan.append((len(pays) - 1, None))
+                    continue
+                v = af(cols, luts) if af is not None else None
+                if d.func in ("count", "count_all"):
+                    out_meta.append(("i64", 0))
+                    if v is None or v.valid is None:
+                        if m_eff is None:
+                            pay_plan.append((None, None))  # segment length
+                        else:
+                            pays.append(m_eff.reshape(-1).to(torch.int64))
+                            pay_plan.append((len(pays) - 1, None))
+                    else:
+                        # count(x): the non-null x of the group, each probe
+                        # row weighted by its join multiplicity
+                        vb = torch.broadcast_to(v.valid, mask.shape)
+                        cnt1 = m_eff if m_eff is not None else 1
+                        pays.append(torch.where(vb, cnt1, 0).reshape(-1).to(torch.int64))
+                        pay_plan.append((len(pays) - 1, None))
+                    continue
+                if d.func in ("welford_mean", "welford_m2") and id(d.expr) in welford_pay:
+                    out_meta.append(("f64", 0))
+                    pay_plan.append(welford_pay[id(d.expr)])
+                    continue
+                out_meta.append((v.kind, v.scale))
+                arr = v.arr
+                if m_eff is not None and d.func == "sum":
+                    arr = arr * m_eff.to(arr.dtype)
+                ncnt_idx = None
+                if v.valid is not None:
+                    # null-skip: neutralize invalid slots for the reduce and
+                    # carry a valid count, so all-NULL groups decode to NULL
+                    # rather than 0 / ±inf
+                    if d.func in ("sum", "welford_mean", "welford_m2"):
+                        neutral = 0
+                    elif d.func == "min":
+                        neutral = (float("inf") if arr.dtype.is_floating_point
+                                   else torch.iinfo(arr.dtype).max)
+                    else:
+                        neutral = (float("-inf") if arr.dtype.is_floating_point
+                                   else torch.iinfo(arr.dtype).min)
+                    arr = torch.where(v.valid, arr,
+                                      torch.tensor(neutral, dtype=arr.dtype, device=arr.device))
+                    pays.append(torch.broadcast_to(v.valid, mask.shape).reshape(-1)
+                                .to(torch.int64))
+                    ncnt_idx = len(pays) - 1
+                pays.append(torch.broadcast_to(arr, mask.shape).reshape(-1))
+                pay_plan.append((len(pays) - 1, ncnt_idx))
+                if d.func in ("welford_mean", "welford_m2"):
+                    welford_pay[id(d.expr)] = pay_plan[-1]
+            plan = {"key_meta": key_meta, "out": out_meta, "pay_plan": pay_plan}
+            return m.reshape(-1), keyops, pays, plan
+
+        def raw(cols, luts, mask, build_args):
+            cols = list(cols) + [a for b in build_args for a in b]
+            dev = mask.device
+            lane_valid, lane_keyops, lane_pays = [], [], []
+            memo.clear()
+            try:
+                for lane in lane_sets:
+                    for cell, d_ in zip(lane_cells, lane):
+                        cell["d"] = d_
+                    valid_l, keyops_l, pays_l, plan = lane_rows(cols, luts, mask)
+                    lane_valid.append(valid_l)
+                    lane_keyops.append(keyops_l)
+                    lane_pays.append(pays_l)
+            finally:
+                memo.clear()
+            key_meta, pay_plan = plan["key_meta"], plan["pay_plan"]
+            valid = torch.cat(lane_valid)
+            n_keyops = len(lane_keyops[0])
+            cat_keys = [torch.cat([lk[i] for lk in lane_keyops]) for i in range(n_keyops)]
+            cat_pays = [torch.cat([lp[i] for lp in lane_pays]) for i in range(len(lane_pays[0]))]
+            del lane_valid, lane_keyops, lane_pays
+
+            clock = _Clock(dev)
+            live = torch.nonzero(valid).squeeze(1)  # the stable partition
+            n = int(live.shape[0])
+            keys_live = [k[live] for k in cat_keys]
+            perm = _lexsort(keys_live) if n else live
+            rows = live[perm]
+            skeys = [k[perm] for k in keys_live]
+            spays = [p_[rows] for p_ in cat_pays]
+            sort_t = clock.stop()
+            del cat_keys, cat_pays, keys_live, perm, rows
+
+            boundary = torch.zeros(n, dtype=torch.bool, device=dev)
+            boundary[:1] = True
+            for k in skeys:
+                boundary[1:] |= k[1:] != k[:-1]
+            is_end = torch.ones(n, dtype=torch.bool, device=dev)
+            is_end[:-1] = boundary[1:]
+            starts = torch.nonzero(boundary).squeeze(1)
+            ends = torch.nonzero(is_end).squeeze(1)
+            n_seg = int(starts.shape[0])
+            if n_seg > C:
+                raise Unsupported(f"group capacity overflow ({n_seg} > {C})")
+            cp = min(_pow2(n_seg), C)  # the fetch covers the live groups only
+            seg = torch.cumsum(boundary, 0) - 1
+
+            def compact(src):
+                out = torch.zeros(cp, dtype=src.dtype, device=dev)
+                out[:n_seg] = src
+                return out
+
+            def seg_len():
+                return compact((ends - starts + 1).to(torch.int64))
+
+            def int_segsum(sv):
+                # exact int64: global cumsum minus the prefix before each
+                # segment's start
+                w = sv.to(torch.int64)
+                csum = torch.cumsum(w, 0)
+                return compact(csum[ends] - (csum[starts] - w[starts]))
+
+            def scan(sv, func):
+                # the reference scans all M sorted rows, where a lone live
+                # row still meets a combine: one dead row keeps that so
+                if n == 1 and M > 1:
+                    pad = torch.zeros(1, dtype=sv.dtype, device=dev)
+                    return _segscan(torch.cat([sv, pad]),
+                                    torch.cat([boundary, boundary[:1]]), func)[:1]
+                return _segscan(sv, boundary, func)
+
+            key_outs = [compact(k[ends]) for k in skeys]
+            agg_outs = []
+            ncnt_outs = []
+            ncnt_map: dict[int, int] = {}
+            welford_stats: dict[int, tuple] = {}  # pay_idx → (count, mean, ncnt pos)
+            for ai, (d, (pay_idx, ncnt_idx)) in enumerate(zip(aggs, pay_plan)):
+                if pay_idx is None:
+                    agg_outs.append(seg_len())
+                    continue
+                sv = spays[pay_idx]
+                if d.func in ("welford_mean", "welford_m2"):
+                    # two-pass variance partial: the segment mean through
+                    # the float segmented scan, then the mean-centred square
+                    # sum; the (mean, m2) pair shares its payload and stats
+                    if pay_idx in welford_stats:
+                        c_c, mean_c, ncnt_pos = welford_stats[pay_idx]
+                    else:
+                        c_c = (int_segsum(spays[ncnt_idx]) if ncnt_idx is not None
+                               else seg_len())
+                        s1_c = compact(scan(sv, "sum")[ends])
+                        mean_c = s1_c / torch.clamp(c_c, min=1).to(sv.dtype)
+                        ncnt_pos = None
+                        if ncnt_idx is not None:
+                            ncnt_pos = len(ncnt_outs)
+                            ncnt_outs.append(c_c)
+                        welford_stats[pay_idx] = (c_c, mean_c, ncnt_pos)
+                    if d.func == "welford_mean":
+                        agg_outs.append(mean_c)
+                    else:
+                        dev_ = sv - mean_c[seg]
+                        d2 = dev_ * dev_
+                        if ncnt_idx is not None:
+                            # null slots were sum-neutralized to 0: keep them
+                            # out of the square sum too
+                            d2 = torch.where(spays[ncnt_idx] > 0, d2,
+                                             torch.zeros((), dtype=d2.dtype, device=dev))
+                        agg_outs.append(compact(scan(d2, "sum")[ends]))
+                    if ncnt_pos is not None:
+                        ncnt_map[ai] = ncnt_pos
+                    continue
+                fname = "sum" if d.func in ("count", "count_all") else d.func
+                if fname == "sum" and not sv.dtype.is_floating_point:
+                    agg_outs.append(int_segsum(sv))
+                else:
+                    # float sums take the segmented scan too: a cumsum-
+                    # subtract would difference two near-equal totals
+                    agg_outs.append(compact(scan(sv, fname)[ends]))
+                if ncnt_idx is not None:
+                    ncnt_map[ai] = len(ncnt_outs)
+                    ncnt_outs.append(int_segsum(spays[ncnt_idx]))
+
+            outs = key_outs + agg_outs + ncnt_outs
+            if emit_keys is not None:
+                outs.append(_partition_ids(key_outs, key_meta, emit_keys, emit_luts,
+                                           luts, emit_k))
+            info = {"key_meta": key_meta, "out": plan["out"], "nullcnt_map": ncnt_map,
+                    "n_seg": n_seg, "C": C, "live_rows": n, "sort_clock": sort_t}
+            return outs, info
+
+        return raw, {"mode": "sorted", "emit_pid": emit_keys is not None}
+
+    def _decode_sorted(self, outs: list[np.ndarray], meta: dict, P: int, dicts,
+                       build_dicts: list) -> dict[int, list[pa.RecordBatch]]:
+        """Decode the sorted path's compacted outputs. Partial-agg results
+        are mergeable, so all segments land in output partition 0 (deduplicated
+        across input partitions); the other partitions emit empty."""
+        schema = self.schema()
+        key_meta = meta["key_meta"]
+        n_keys = len(key_meta)
+        n_keyops = sum(2 if km[3] else 1 for km in key_meta)
+        n = meta["n_seg"]
+        results = {p: [_empty_batch(schema)] for p in range(P)}
+        if n == 0:
+            return results
+        host = outs[:-1] if meta.get("emit_pid") else outs
+        nullcnt_map = meta.get("nullcnt_map", {})
+        n_aggs = len(meta["out"])
+        ncnt_host = host[n_keyops + n_aggs:]
+        arrays: list[pa.Array] = []
+        pos = 0
+        for (kind, scale, slot, has_null), f in zip(key_meta, schema):
+            null_mask = None
+            if has_null:
+                null_mask = host[pos][:n] != 0
+                pos += 1
+            vals = host[pos][:n]
+            pos += 1
+            if kind == "code":
+                # the LIVE dictionary of this run's table or build
+                if isinstance(slot, tuple) and slot[0] == "build":
+                    dic = build_dicts[slot[1]][slot[2]]
+                else:
+                    dic = dicts[slot]
+                arr = pa.array(dic, pa.string()).take(pa.array(vals, mask=null_mask))
+            elif kind == "date":
+                arr = pa.array(vals.astype(np.int32), pa.int32(), mask=null_mask).cast(pa.date32())
+            elif kind == "money":
+                arr = pa.array(vals.astype(np.float64) / (10**scale), pa.float64(),
+                               mask=null_mask)
+            else:
+                arr = pa.array(vals, mask=null_mask)
+            if arr.type != f.type:
+                arr = arr.cast(f.type)
+            arrays.append(arr)
+        for ai, (out, (kind, scale), f) in enumerate(
+            zip(host[n_keyops:n_keyops + n_aggs], meta["out"], list(schema)[n_keys:])
+        ):
+            vals = out[:n]
+            null_mask = None
+            if ai in nullcnt_map:
+                # all of the group's agg inputs were NULL → the agg is NULL
+                null_mask = ncnt_host[nullcnt_map[ai]][:n] == 0
+            if kind == "money":
+                arr = pa.array(vals.astype(np.float64) / (10**scale), pa.float64(),
+                               mask=null_mask)
+            elif kind == "date":
+                arr = pa.array(vals.astype(np.int32), pa.int32(), mask=null_mask).cast(pa.date32())
+            else:
+                arr = pa.array(vals, mask=null_mask)
+            if arr.type != f.type:
+                arr = arr.cast(f.type)
+            arrays.append(arr)
+        if meta.get("emit_pid"):
+            # device-routed shuffle: the partition ids ride along; the
+            # shuffle writer consumes and drops the __pid column
+            arrays.append(pa.array(outs[-1][:n].astype(np.int32), pa.int32()))
+            out_schema = pa.schema(list(schema) + [pa.field("__pid", pa.int32())])
+            self.pid_emitted += 1
+            results[0] = [pa.RecordBatch.from_arrays(arrays, schema=out_schema)]
+            return results
+        results[0] = [pa.RecordBatch.from_arrays(arrays, schema=schema)]
+        return results
 
     def _decode_all(self, outs: list[np.ndarray], meta: dict, P: int, dicts,
                     build_dicts: list | None = None) -> dict[int, list[pa.RecordBatch]]:
@@ -1412,6 +1888,64 @@ def _masked_reduce(v, gm, func: str):
     raise Unsupported(f"agg {func}")
 
 
+class _Clock:
+    """Seconds of device work from here to `stop()`: CUDA events on the
+    card (read once the stage has synchronized, no sync of its own), the
+    host clock on the CPU. `stop()` returns a callable giving the span."""
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+        else:
+            self.t0 = time.perf_counter()
+
+    def stop(self):
+        if self.cuda:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            return lambda: self.start.elapsed_time(end) / 1e3
+        span = time.perf_counter() - self.t0
+        return lambda: span
+
+
+_NULL_TAG = 0x9E3779B97F4A7C15 - (1 << 64)  # ops/hashing._NULL_TAG as int64
+
+
+def _partition_ids(key_outs, key_meta, emit_keys, emit_luts, luts, k) -> torch.Tensor:
+    """The shuffle partition of each compacted group row: ops/hashing's
+    partition_indices over the decoded key columns, computed on the card.
+    A string key hashes through its dictionary's FNV-1a LUT; a money key
+    through the bits of its decoded float64 (value / 10^scale, as the
+    decode divides, with -0.0 made +0.0); other keys through their int64
+    value; a NULL key takes the NULL tag."""
+    pos = 0
+    key_pos = []  # per key: (marker position | None, value position)
+    for (_k, _s, _slot, has_null) in key_meta:
+        key_pos.append((pos if has_null else None, pos + (1 if has_null else 0)))
+        pos += 2 if has_null else 1
+    h = torch.zeros_like(key_outs[0], dtype=torch.int64)
+    for ki in emit_keys:
+        kind, scale, _slot, _hn = key_meta[ki]
+        mpos, vpos = key_pos[ki]
+        arr = key_outs[vpos]
+        if kind == "code":
+            enc = take(luts[emit_luts[ki]], arr)
+        elif kind == "money":
+            f = arr.to(torch.float64) / (10.0 ** scale)
+            f = torch.where(f == 0.0, torch.zeros_like(f), f)
+            enc = f.view(torch.int64)
+        else:  # i64 / date / bool: the value's int64 bits
+            enc = arr.to(torch.int64)
+        hv = hash64(enc)
+        if mpos is not None:
+            hv = torch.where(key_outs[mpos] != 0,
+                             torch.tensor(_NULL_TAG, dtype=torch.int64, device=hv.device), hv)
+        h = hash_combine(h, hv)
+    return umod(h, k).to(torch.int32)
+
+
 def _pow2(n: int) -> int:
     p = 1
     while p < max(n, 1):
@@ -1474,13 +2008,15 @@ def _memoized(memo: dict, key, cols, compute):
 
 def _mk_join_finder(off: int, probe_fns, bt: BuildTable, cell: dict, memo: dict,
                     pallas: bool = False):
-    """Closure computing (clamped build index, matched mask) for one join,
-    'direct' mode.
+    """Closure computing (clamped build index, matched mask) for one join.
 
-    Unique keys: the build shipped a dense key→row int32 table — ONE gather
-    per probe, matched iff row >= 0. Repeated keys (dup > 1): the lo/cnt
-    tables; the probe's match lane d (`cell["d"]`, set by the lane loop
-    before each lane runs) selects row lo+d, matched iff d < cnt.
+    'direct' mode, unique keys: the build shipped a dense key→row int32
+    table — ONE gather per probe, matched iff row >= 0. Repeated keys
+    (dup > 1): the lo/cnt tables; the probe's match lane d (`cell["d"]`,
+    set by the lane loop before each lane runs) selects row lo+d, matched
+    iff d < cnt. 'sorted' mode: a binary search over the sorted keys (left
+    for unique keys, left and right for expansion lanes), with the
+    reference's clamps and match rules.
 
     `pallas=True` (unique keys only) routes the lookup through the
     hand-written `hash_probe` kernel: table in shared memory, gather and
@@ -1491,11 +2027,21 @@ def _mk_join_finder(off: int, probe_fns, bt: BuildTable, cell: dict, memo: dict,
     shifts = bt.shifts
     has_cnt = bt.cnt is not None
     b_static = bt.padded_rows()
+    sorted_mode, dup = bt.mode == "sorted", bt.dup
     token = object()
 
     def find(cols, luts, d):
         keys_arr = cols[off]
         k, valid = _probe_key(cols, luts, probe_fns, shifts)
+        if sorted_mode:
+            last = keys_arr.shape[0] - 1
+            if dup == 1:
+                idxc = torch.searchsorted(keys_arr, k).clamp(0, last)
+                return idxc, DevVal("bool", (take(keys_arr, idxc) == k) & valid)
+            lo = torch.searchsorted(keys_arr, k, side="left")
+            hi = torch.searchsorted(keys_arr, k, side="right")
+            idxc = (lo + d).clamp(0, last).to(torch.int32)
+            return idxc, DevVal("bool", valid & (lo + d < hi))
         in_range = valid & (k >= 0) & (k < keys_arr.shape[0])
         kc = torch.where(in_range, k, 0)
         if not has_cnt:
@@ -1599,14 +2145,19 @@ def _mk_join_counter(off: int, probe_fns, bt: BuildTable, memo: dict):
     instead of dup lane passes, and no MAX_JOIN_DUP ceiling."""
     shifts = bt.shifts
     has_cnt = bt.cnt is not None
+    sorted_mode = bt.mode == "sorted"
     token = object()
 
     def count(cols, luts):
         keys_arr = cols[off]
         k, valid = _probe_key(cols, luts, probe_fns, shifts)
+        zero = torch.zeros((), dtype=torch.int32, device=k.device)
+        if sorted_mode:
+            lo = torch.searchsorted(keys_arr, k, side="left")
+            hi = torch.searchsorted(keys_arr, k, side="right")
+            return torch.where(valid, (hi - lo).to(torch.int32), zero)
         in_range = valid & (k >= 0) & (k < keys_arr.shape[0])
         kc = torch.where(in_range, k, 0)
-        zero = torch.zeros((), dtype=torch.int32, device=kc.device)
         if has_cnt:
             return torch.where(in_range, take(cols[off + 1], kc), zero)
         row = take(keys_arr, kc)

@@ -17,7 +17,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    exactly where the plain form has it; timed at G=8 and G=4096, library
    call torch.bincount); hash_probe at q5's
    P=8, N=8388608, T=32 (table in shared memory) and T=1<<18 with 30%
-   absent keys (table read through the read-only cache), exact (library
+   absent keys (table read through the read-only cache) and at q21's
+   supplier join at SF10 (T=1<<17, 100,000 keys present), exact (library
    call torch.take); dict_filter at q12's P=8, N=2097152, T=8, and T=4096
    and T=1<<17 (the global-LUT regime), exact (library call torch.take);
    segmented_sort at the window shape [1, 2^20], at [1, 2^18] and
@@ -65,7 +66,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
    fallback; fused_pallas chosen by auto mode; and the launches of every
    run: 32 segmented_sort + 80 segmented_scan, 8 topk_select, 16
    segmented_sort;
-6. print one JSON line of kernel numbers, the card line, and last
+6. the sorted aggregation: q3, q10 and q13 at --scale, q9 and q21 at
+   --q4-scale (SORTED_QUERIES says why), auto mode but q21 under
+   fused_pallas — one warm-up, best of 3, one traced run — each answer
+   checked against the port's engine=cpu as in phase 4, every device
+   stage on the card with no fallback, at least one partial stage of each
+   run sorted, q9 holding a sorted-mode join build and q21 launching
+   hash_probe in every run; the stages' group counts, capacities, live
+   rows and sort times recorded; then q1 under
+   ballista.tpu.fusion.mode=staged, byte-identical to fused_xla with its
+   span times, and device shuffle routing: lineitem grouped by l_orderkey
+   under a hand-built hash ShuffleWriterExec of 16 partitions, every
+   written row hashing on the host (ops/hashing) to its own partition and
+   the rows together equal to the engine=cpu answer (both at --q4-scale);
+7. print one JSON line of kernel numbers, the card line, and last
    {"ok": true, "device": {...}}.
 
 Options: --scale (q1/q6/q5/q12 scale factor, default 10), --q4-scale
@@ -260,11 +274,13 @@ def gather_phase(dev, busy_ok: bool) -> list[dict]:
     rng = np.random.default_rng(11)
     records = []
     smem = {k: ck.smem_max_entries(k) for k in ("hash_probe", "dict_filter")}
-    # (P, N, T, share of table slots present): q5's nation join, and the
+    # (P, N, T, share of table slots present): q5's nation join, the
     # largest table the engine sends the kernel (pallas.max.probe.rows)
-    # with 30% of its keys absent
+    # with 30% of its keys absent, and q21's supplier join at SF10 (100,000
+    # suppliers in 2^17 slots)
     hp = {}
-    for P, N, T, present in ((8, 8388608, 32, 25 / 32), (8, 8388608, 1 << 18, 0.7)):
+    for P, N, T, present in ((8, 8388608, 32, 25 / 32), (8, 8388608, 1 << 18, 0.7),
+                             (8, 8388608, 1 << 17, 100000 / (1 << 17))):
         table_np = np.full(T, -1, np.int32)
         slots = rng.choice(T, size=int(T * present), replace=False)
         table_np[slots] = rng.permutation(len(slots)).astype(np.int32)
@@ -293,6 +309,7 @@ def gather_phase(dev, busy_ok: bool) -> list[dict]:
         del keys, keys_l, mask, r1, r2, rp, m1, m2, mp
     main = hp[32]
     main["large"] = hp[1 << 18]
+    main["q21_supplier"] = hp[1 << 17]
     records.append({"name": "hash_probe", "route": "cuda",
                     "source": "ballista_tpu_torch/ops/cuda/csrc/hash_probe.cu",
                     "replaces": "ballista_tpu/ops/tpu/pallas_kernels.py:185",
@@ -904,6 +921,219 @@ def run_sort_query(name: str, data_dir: str, dev, busy_ok: bool) -> dict:
     }
 
 
+# the sorted aggregation's queries, auto mode, with the data they run on
+# ("big": --scale; "small": the q4 data, --q4-scale) and their config.
+# q9 and q21 run on the small data: the port's engine=cpu takes 26 s (q9)
+# and 17 s (q21) for their reference answers at SF1 on the H100 machine's
+# host, and grows about tenfold to SF10, more than the run's time limit
+# holds beside the other phases. q21 runs under
+# fused_pallas: its group key s_name has 10,000 names at SF1 (100,000 at
+# SF10), past the kernel family's 4096 groups, so auto mode takes fused_xla,
+# which probes through plain gathers; fused_pallas sends its supplier and
+# nation probes through hash_probe.
+SORTED_QUERIES = {
+    3: ("big", {}),
+    9: ("small", {}),
+    10: ("big", {}),
+    13: ("big", {}),
+    21: ("small", {"ballista.tpu.fusion.mode": "fused_pallas"}),
+}
+
+
+def run_sorted_query(q: int, data_dir: str, dev, busy_ok: bool, extra_cfg: dict) -> dict:
+    """One query of the sorted aggregation's phase: the port's engine=cpu
+    answer, then one warm-up and best of 3 with engine=tpu, each checked
+    against it, every device stage on the card with no fallback and at
+    least one partial stage sorted; one more, traced, run."""
+    from ballista_tpu_torch.client.context import SessionContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.engine.cuda_engine import maybe_compile_tpu
+    from ballista_tpu_torch.ops.cuda import cuda_kernels as ck
+    from ballista_tpu_torch.ops.cuda.final_stage import TpuFinalStageExec
+    from ballista_tpu_torch.ops.cuda.stage_compiler import RUN_STATS, TpuStageExec
+    from ballista_tpu_torch.testing.tpchgen import register_tpch
+
+    with open(os.path.join(ROOT, "benchmarks", "tpch", "queries", f"q{q}.sql")) as f:
+        sql = f.read()
+    cpu_ctx = SessionContext(BallistaConfig({"ballista.executor.engine": "cpu"}))
+    register_tpch(cpu_ctx, data_dir)
+    t0 = time.time()
+    cpu_tbl = cpu_ctx.sql(sql).collect()
+    cpu_s = time.time() - t0
+    del cpu_ctx
+
+    ctx = SessionContext(BallistaConfig({**QUERY_CONFIG, **extra_cfg}))
+    register_tpch(ctx, data_dir)
+    times, plan_times, run_launches, sorted_recs = [], [], [], []
+    for i in range(4):  # one warm-up, then best of 3
+        before = dict(ck.LAUNCHES)
+        t0 = time.time()
+        physical = maybe_compile_tpu(ctx.create_physical_plan(ctx.sql(sql).plan), ctx.config)
+        plan_s = time.time() - t0
+        tbl = ctx.execute_collect(physical)
+        wall = time.time() - t0
+        run_launches.append({k: ck.LAUNCHES[k] - before[k] for k in before})
+        compare_answers(tbl, cpu_tbl, q)
+        stages = [n for n in _walk(physical) if isinstance(n, (TpuStageExec, TpuFinalStageExec))]
+        partial = [s for s in stages if isinstance(s, TpuStageExec)]
+        if not partial:
+            raise AssertionError(f"q{q}: no device partial stage was planned")
+        for s in stages:
+            if s.tpu_count < 1 or s.fallback_count != 0:
+                raise AssertionError(f"q{q}: {s.node_str()} did not run on the card "
+                                     f"(device_runs={s.tpu_count}, fallbacks={s.fallback_count})")
+        recs = RUN_STATS.stages()
+        srt = [dict(recs[_tag(s)]) for s in partial if "n_seg" in recs.get(_tag(s), {})]
+        if not srt:
+            raise AssertionError(f"q{q}: no partial stage took the sorted aggregation")
+        sorted_recs.append(srt)
+        if i:
+            times.append(wall)
+            plan_times.append(plan_s)
+        else:
+            cold_wall = wall
+    best = min(range(3), key=lambda k: times[k])
+    warm = sorted_recs[best + 1]
+    if q == 9 and not any("sorted" in r.get("build_modes", ()) for r in warm):
+        raise AssertionError(f"q9: no sorted-mode join build ({[r.get('build_modes') for r in warm]})")
+    if q == 21 and min(r["hash_probe"] for r in run_launches) < 1:
+        raise AssertionError(f"q21: hash_probe launched {[r['hash_probe'] for r in run_launches]}"
+                             " times per run, at least 1 expected")
+    log(f"q{q}: equal to the CPU engine, {len(warm)} sorted stage(s) "
+        f"(n_seg {[r['n_seg'] for r in warm]}, C {[r['seg_capacity'] for r in warm]}, "
+        f"builds {[r.get('build_modes') for r in warm]}), launches per run "
+        f"{[{k: v for k, v in r.items() if v} for r in run_launches]}")
+
+    def one_run():
+        physical = maybe_compile_tpu(ctx.create_physical_plan(ctx.sql(sql).plan), ctx.config)
+        ctx.execute_collect(physical)
+
+    t0 = time.time()
+    by_name: dict = {}
+    busy = device_busy_ms(one_run, by_name=by_name) if busy_ok else None
+    traced_wall = time.time() - t0
+    top_ops = sorted(([n[:80], ms, c] for n, (ms, c) in by_name.items()),
+                     key=lambda r: -r[1])[:6]
+    keep = ("n_seg", "seg_capacity", "live_rows", "sort_s", "fused_kernel_s", "exec_s",
+            "build_s", "build_modes", "fusion_mode", "fusion_reason")
+    return {
+        "query": f"q{q}", "wall_s": times[best], "times_s": times, "plan_s": plan_times[best],
+        "cold_wall_s": cold_wall, "rows_out": cpu_tbl.num_rows,
+        "sorted_stages": [{k: r.get(k) for k in keep} for r in warm],
+        "cold_sorted_stages": [{k: r.get(k) for k in keep} for r in sorted_recs[0]],
+        "kernel_launches_per_run": run_launches, "cpu_engine_s": cpu_s,
+        "traced_wall_s": traced_wall, "device_busy_ms": busy, "top_device_ops": top_ops,
+        "device_idle_share": None if busy is None else 1.0 - busy / 1e3 / traced_wall,
+    }
+
+
+def staged_check(data_dir: str) -> dict:
+    """q1 under ballista.tpu.fusion.mode=staged on the card: byte-identical
+    to the same query under fused_xla, with the per-span split recorded."""
+    from ballista_tpu_torch.client.context import SessionContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.ops.cuda.stage_compiler import RUN_STATS
+    from ballista_tpu_torch.testing.tpchgen import register_tpch
+
+    with open(os.path.join(ROOT, "benchmarks", "tpch", "queries", "q1.sql")) as f:
+        sql = f.read()
+    out = {}
+    for mode in ("fused_xla", "staged"):
+        ctx = SessionContext(BallistaConfig({**QUERY_CONFIG, "ballista.tpu.fusion.mode": mode}))
+        register_tpch(ctx, data_dir)
+        RUN_STATS.clear()
+        t0 = time.time()
+        tbl = ctx.sql(sql).collect()
+        out[mode] = (tbl, RUN_STATS.snapshot(), time.time() - t0)
+    (fused, _, fused_s), (staged, stats, staged_s) = out["fused_xla"], out["staged"]
+    if stats.get("fusion_mode") != "staged" or set(stats.get("span_s", {})) != {
+            "predicate", "project", "aggregate"}:
+        raise AssertionError(f"q1 staged: fusion_mode {stats.get('fusion_mode')!r}, "
+                             f"span_s {stats.get('span_s')!r}")
+    if not staged.equals(fused):
+        raise AssertionError("q1 staged: the answer differs from fused_xla's")
+    log(f"q1 staged: byte-identical to fused_xla, span_s {stats['span_s']}")
+    return {"query": "q1_staged", "span_s": stats["span_s"],
+            "fused_kernel_s": stats.get("fused_kernel_s"), "staged_wall_s": staged_s,
+            "fused_xla_wall_s": fused_s}
+
+
+def routing_check(data_dir: str, k: int = 16) -> dict:
+    """One sorted stage (lineitem grouped by l_orderkey) under a hand-built
+    hash-layout ShuffleWriterExec, as a distributed plan's first stage:
+    the stage emits __pid on the card and the writer routes by it. Every
+    written row must hash on the host, through ops/hashing, to its own
+    partition, and the rows together must be the engine=cpu answer."""
+    import shutil
+
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.ipc as ipc
+
+    from ballista_tpu_torch.client.context import SessionContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.engine.cuda_engine import maybe_compile_tpu
+    from ballista_tpu_torch.ops.cuda.stage_compiler import TpuStageExec
+    from ballista_tpu_torch.ops.hashing import partition_indices
+    from ballista_tpu_torch.plan.physical import RepartitionExec, TaskContext
+    from ballista_tpu_torch.shuffle.writer import ShuffleWriterExec
+    from ballista_tpu_torch.testing.tpchgen import register_tpch
+
+    sql = ("SELECT l_orderkey, sum(l_quantity) AS q, count(*) AS c FROM lineitem "
+           "GROUP BY l_orderkey")
+    ctx = SessionContext(BallistaConfig(dict(QUERY_CONFIG)))
+    register_tpch(ctx, data_dir)
+    phys = ctx.create_physical_plan(ctx.sql(sql).plan)
+    rep = [n for n in _walk(phys) if isinstance(n, RepartitionExec) and n.scheme == "hash"][0]
+    writer = ShuffleWriterExec(rep.input, "route", 1, k, rep.keys, sort_shuffle=False)
+    compiled = maybe_compile_tpu(writer, ctx.config)
+    stage = [n for n in _walk(compiled) if isinstance(n, TpuStageExec)][0]
+    if stage.emit_pid != ([0], k):
+        raise AssertionError(f"routing: emit_pid {stage.emit_pid!r}")
+    work = os.path.join(ROOT, "build", "route_check")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        t0 = time.time()
+        task = TaskContext(ctx.config, task_id="t0", work_dir=work)
+        for p in range(compiled.output_partition_count()):
+            list(compiled.execute(p, task))
+        write_s = time.time() - t0
+        if stage.pid_emitted < 1 or stage.fallback_count != 0 or stage.tpu_count < 1:
+            raise AssertionError(f"routing: {stage.node_str()} pid_emitted={stage.pid_emitted}")
+        tables = {}
+        for pid_dir in sorted(os.listdir(os.path.join(work, "route", "1"))):
+            parts = []
+            for name in os.listdir(os.path.join(work, "route", "1", pid_dir)):
+                if name.endswith(".arrow"):
+                    with open(os.path.join(work, "route", "1", pid_dir, name), "rb") as fh:
+                        parts.append(ipc.open_stream(fh).read_all())
+            tables[int(pid_dir)] = pa.concat_tables(parts)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for pid, t in tables.items():
+        if "__pid" in t.column_names:
+            raise AssertionError("routing: a written bucket kept the __pid column")
+        host = partition_indices([t.column("l_orderkey").combine_chunks()], k)
+        if not (host == pid).all():
+            raise AssertionError(f"routing: {int((host != pid).sum())} rows of bucket {pid} "
+                                 "hash elsewhere on the host")
+    # the written partial rows (key, sum, count accumulators), one per group
+    written = pa.concat_tables(tables.values()).sort_by("l_orderkey")
+    cpu_ctx = SessionContext(BallistaConfig({"ballista.executor.engine": "cpu"}))
+    register_tpch(cpu_ctx, data_dir)
+    want = cpu_ctx.sql(sql).collect().sort_by("l_orderkey")
+    if written.num_rows != want.num_rows or not written.column(0).equals(
+            want.column(0)) or not written.column(2).equals(want.column(2)):
+        raise AssertionError("routing: the written rows are not the engine=cpu answer")
+    if not np.allclose(written.column(1).to_numpy(), want.column(1).to_numpy(),
+                       rtol=1e-9, atol=0.0):
+        raise AssertionError("routing: the written sums differ from the engine=cpu answer")
+    log(f"routing: {written.num_rows} groups in {len(tables)} of {k} buckets, every row "
+        f"hashes on the host to its own bucket, equal to the engine=cpu answer")
+    return {"query": "route_l_orderkey", "groups": written.num_rows, "buckets": len(tables),
+            "k": k, "write_s": write_s, "pid_emitted": stage.pid_emitted}
+
+
 def _tag(stage) -> str:
     import zlib
 
@@ -988,7 +1218,24 @@ def main(argv=None) -> int:
             r["card"] = card
             print(json.dumps(r), flush=True)
             log(f"{name} done at {time.time() - t0:.1f}s")
-        path_of = {"masked_group_reduce": (4,), "hash_probe": (5,), "dict_filter": (12,),
+        # the sorted aggregation, then the staged mode and device routing
+        for q, (which, extra) in SORTED_QUERIES.items():
+            path_dir, scale = ((big_dir, args.scale) if which == "big"
+                               else (q4_dir, args.q4_scale))
+            cuda_kernels.reset_launches()
+            r = run_sorted_query(q, path_dir, dev, busy_ok, extra)
+            r["launches"] = launches[q] = dict(cuda_kernels.LAUNCHES)
+            r["scale"] = scale
+            r["card"] = card
+            print(json.dumps(r), flush=True)
+            log(f"q{q} (sorted) done at {time.time() - t0:.1f}s")
+        for check in (staged_check, routing_check):
+            r = check(q4_dir)
+            r["scale"] = args.q4_scale
+            r["card"] = card
+            print(json.dumps(r), flush=True)
+            log(f"{r['query']} done at {time.time() - t0:.1f}s")
+        path_of = {"masked_group_reduce": (4,), "hash_probe": (5, 21), "dict_filter": (12,),
                    "segmented_sort": ("win_orders", "sort_customer"),
                    "topk_select": ("topk_partsupp",), "segmented_scan": ("win_orders",)}
         for krec in krecs:

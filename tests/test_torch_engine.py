@@ -58,10 +58,17 @@ def port_cpu_answers(tpch_dir):
     return {q: ctx.sql(tpch_query(q)).collect() for q in range(1, 23)}
 
 
-@pytest.mark.parametrize("q", [1, 4, 6, 5, 12, 14, 19])
+# every TPC-H query whose partial stages the JAX package runs on the device
+# (q16 and q18 decline in both packages: an empty build side at SF0.01)
+DEVICE_QUERIES = [q for q in range(1, 23) if q not in (16, 18)]
+
+
+@pytest.mark.parametrize("q", DEVICE_QUERIES)
 def test_tpch_byte_identical_to_jax_engine(q, tpch_dir):
-    # money stays exact int64 cents on both sides and every float op is the
-    # same IEEE operation, so the Arrow tables agree byte for byte
+    # money stays exact int64 cents on both sides, every float op is the
+    # same IEEE operation, and the sorted aggregation keeps tied rows in
+    # input order as the reference's sort does, so the Arrow tables agree
+    # byte for byte
     want = _jax_ctx(tpch_dir).sql(tpch_query(q)).collect()
     got = _port_ctx(tpch_dir).sql(tpch_query(q)).collect()
     assert got.schema.equals(want.schema)
@@ -249,7 +256,7 @@ def test_tpch_device_engine_matches_cpu_engine(q, tpch_dir, port_cpu_answers):
     assert not problems, "\n".join(problems)
 
 
-@pytest.mark.parametrize("q", [1, 4, 6, 5, 12, 14, 19])
+@pytest.mark.parametrize("q", DEVICE_QUERIES)
 def test_device_stages_ran_without_fallback(q, tpch_dir):
     from ballista_tpu_torch.engine.cuda_engine import maybe_compile_tpu
     from ballista_tpu_torch.ops.cuda.final_stage import TpuFinalStageExec
@@ -382,16 +389,10 @@ def test_filtered_nan_row_stays_out_of_every_group_under_fused_pallas(monkeypatc
 
 # -- the JAX package's join tests (tests/test_tpu_engine.py), on the port --
 #
-# Each runs the port's engine=tpu with the device path asserted (no CPU
-# fallback), and compares with the port's engine=cpu and with the JAX
-# package's engine=tpu on the same tables. The fusion mode is pinned to
-# fused_xla, the mode the JAX package's auto mode takes on the CPU for
-# these stages, because the port does not carry the staged mode that auto
-# mode picks below ballista.tpu.fusion.min.rows. Group keys are
-# dictionary (string) columns where the JAX test grouped by an int64
-# column: the port does not carry the sorted large-domain aggregation.
-
-ORACLE_CFG = {"ballista.tpu.fusion.mode": "fused_xla"}
+# Each runs the port's engine=tpu in auto mode with the device path asserted
+# (no CPU fallback), and compares with the port's engine=cpu and with the
+# JAX package's engine=tpu on the same tables, grouped as the JAX tests
+# group them (int64 keys go through the sorted aggregation).
 
 
 def _oracle(sql, tables):
@@ -406,7 +407,7 @@ def _oracle(sql, tables):
         ctx_mod = __import__(f"{pkg}.client.context", fromlist=["SessionContext"])
         cfg_mod = __import__(f"{pkg}.config", fromlist=["BallistaConfig"])
         ctx = ctx_mod.SessionContext(cfg_mod.BallistaConfig(
-            {**BASE_CFG, **ORACLE_CFG, "ballista.executor.engine": engine}))
+            {**BASE_CFG, "ballista.executor.engine": engine}))
         for name, tbl in tables.items():
             ctx.register_arrow_table(name, tbl, partitions=2)
         out.append(ctx.sql(sql).collect())
@@ -494,10 +495,8 @@ def test_right_outer_join_on_device():
     skips them."""
     rng = np.random.default_rng(3)
     n = 6000
-    ck = rng.integers(0, 200, n).astype("int64")  # some keys miss
     probe = pa.table({
-        "ck": ck,
-        "pg": pa.array([f"p{k % 6}" for k in ck]),
+        "ck": rng.integers(0, 200, n).astype("int64"),  # some keys miss
         "amt": np.round(rng.uniform(1, 10, n), 2),
     })
     build = pa.table({
@@ -505,12 +504,12 @@ def test_right_outer_join_on_device():
         "grp": pa.array([f"g{i % 4}" for i in range(120)]),
         "w": pa.array(np.arange(0, 120).astype("float64") / 2),
     })
-    sql = ("SELECT pg, count(w) AS cw, count(*) AS c, sum(amt) AS s "
-           "FROM build RIGHT JOIN probe ON id = ck GROUP BY pg ORDER BY pg")
+    sql = ("SELECT ck, count(w) AS cw, count(*) AS c, sum(amt) AS s "
+           "FROM build RIGHT JOIN probe ON id = ck GROUP BY ck ORDER BY ck")
     tpu, cpu, jax_tpu = _oracle(sql, {"probe": probe, "build": build})
     assert tpu.equals(jax_tpu)
     tp, cp = tpu.to_pandas(), cpu.to_pandas()
-    assert tp.pg.tolist() == cp.pg.tolist()
+    assert tp.ck.tolist() == cp.ck.tolist()
     assert tp.cw.tolist() == cp.cw.tolist()
     assert tp.c.tolist() == cp.c.tolist()
     assert np.allclose(tp.s.values, cp.s.values, atol=1e-6)
@@ -524,11 +523,9 @@ def test_filtered_semi_anti_join_on_device():
     lanes on the device."""
     rng = np.random.default_rng(9)
     n = 5000
-    sk = rng.integers(0, 10, n).astype("int64")
     t1 = pa.table({
         "ok": rng.integers(0, 400, n).astype("int64"),
-        "sk": sk,
-        "sg": pa.array([f"s{v}" for v in sk]),
+        "sk": rng.integers(0, 10, n).astype("int64"),
         "v": np.round(rng.uniform(1, 5, n), 2),
     })
     m = 2000
@@ -537,13 +534,13 @@ def test_filtered_semi_anti_join_on_device():
         "sk2": rng.integers(0, 10, m).astype("int64"),
     })
     for kw in ("EXISTS", "NOT EXISTS"):
-        sql = (f"SELECT sg, count(*) AS c, sum(v) AS s FROM t1 WHERE {kw} "
+        sql = (f"SELECT sk, count(*) AS c, sum(v) AS s FROM t1 WHERE {kw} "
                f"(SELECT 1 FROM t2 WHERE ok2 = ok AND sk2 <> sk) "
-               f"GROUP BY sg ORDER BY sg")
+               f"GROUP BY sk ORDER BY sk")
         tpu, cpu, jax_tpu = _oracle(sql, {"t1": t1, "t2": t2})
         assert tpu.equals(jax_tpu), kw
         tp, cp = tpu.to_pandas(), cpu.to_pandas()
-        assert tp.sg.tolist() == cp.sg.tolist(), kw
+        assert tp.sk.tolist() == cp.sk.tolist(), kw
         assert tp.c.tolist() == cp.c.tolist(), kw
         assert np.allclose(tp.s.values, cp.s.values, atol=1e-6), kw
 
@@ -559,7 +556,7 @@ def test_aggregate_through_join_multiplicity():
     })
     probe = pa.table({
         "id": pa.array(np.arange(80), pa.int64()),     # ids 60..79 unmatched
-        "grp": pa.array([f"g{i % 7}" for i in range(80)]),
+        "grp": pa.array([i % 7 for i in range(80)], pa.int64()),
     })
     for jt, sqljoin in (("inner", "JOIN"), ("outer", "RIGHT JOIN")):
         sql = (f"SELECT grp, count(bid) AS cb, count(*) AS c FROM build "
