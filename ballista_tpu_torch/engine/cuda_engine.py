@@ -16,7 +16,9 @@ over a Filter/Projection/collected-join chain (TpuStageExec), then, behind
 (TpuSortStageExec) and window stages (TpuWindowStageExec) of the sort
 family (ops/cuda/sort_window.py). Where the plan's root is a shuffle
 writer hash-partitioning a TpuStageExec's group columns, the stage emits
-the partition ids itself (_wire_device_routing).
+the partition ids itself (_wire_device_routing). An AQE resolve-time
+stamp of the observed input bytes on the root reaches every TpuStageExec's
+admission (_wire_observed_bytes).
 """
 
 from __future__ import annotations
@@ -75,6 +77,9 @@ def maybe_compile_tpu(physical: ExecutionPlan, config: BallistaConfig) -> Execut
     if cc_dir:
         runtime.init_compile_cache(cc_dir)
 
+    # capture the AQE resolve-time stamp before any rewrite rebuilds the
+    # root node (with_children does not carry ad-hoc attributes)
+    observed_bytes = int(getattr(physical, "hbm_observed_input_bytes", 0) or 0)
     physical = _concretize_dynamic_joins(physical)
     sort_on = sort_family_enabled(config)
 
@@ -123,7 +128,28 @@ def maybe_compile_tpu(physical: ExecutionPlan, config: BallistaConfig) -> Execut
 
     out = walk(physical)
     _wire_device_routing(out)
+    _wire_observed_bytes(observed_bytes, out)
     return out
+
+
+def _wire_observed_bytes(observed: int, out: ExecutionPlan) -> None:
+    """Copy the AQE resolve-time stamp (`hbm_observed_input_bytes`, the
+    input volume the finished producers observed) from the stage root onto
+    every compiled TpuStageExec, where admission uses it as a floor under
+    the build-size estimate. Plain attributes on both sides: sub-plans
+    never cross the wire."""
+    from ballista_tpu_torch.ops.cuda.stage_compiler import TpuStageExec
+
+    if observed <= 0:
+        return
+
+    def walk(node: ExecutionPlan) -> None:
+        if isinstance(node, TpuStageExec):
+            node.hbm_observed_input_bytes = observed
+        for c in node.children():
+            walk(c)
+
+    walk(out)
 
 
 def _wire_device_routing(root: ExecutionPlan) -> None:

@@ -57,6 +57,7 @@ import threading
 
 import torch
 
+from ballista_tpu_torch.ops.cuda import hbm
 from ballista_tpu_torch.ops.cuda.kernels import take
 
 MAX_GROUPS = 4096  # the Pallas kernel's multi-tile ceiling (32 x 128 lanes)
@@ -65,6 +66,15 @@ MAX_SORT_LANES = 1 << 20  # absolute ceiling of the sort family; the cost model 
 LAUNCHES = {"masked_group_reduce": 0, "hash_probe": 0, "dict_filter": 0,
             "segmented_sort": 0, "topk_select": 0, "segmented_scan": 0}
 _count_lock = threading.Lock()
+
+
+def _launch_error(name: str, rc: int) -> RuntimeError:
+    """The error a launch that returned CUDA error `rc` raises: an
+    allocation failure is hbm.DeviceAllocationError, which the stages'
+    out-of-memory rung classifies; any other code is a RuntimeError."""
+    cls = (hbm.DeviceAllocationError if rc == hbm.CUDA_ERROR_MEMORY_ALLOCATION
+           else RuntimeError)
+    return cls(f"{name} launch failed: CUDA error {rc}")
 
 
 def reset_launches() -> None:
@@ -193,7 +203,7 @@ def masked_group_reduce(vals, gid, mask, num_groups: int):
                         P, N, num_groups, blocks, span,
                         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"masked_group_reduce launch failed: CUDA error {rc}")
+        raise _launch_error("masked_group_reduce", rc)
     _count("masked_group_reduce")
     return sums, cnts
 
@@ -261,7 +271,7 @@ def hash_probe(keys, table, mask):
         rc = launch(k.data_ptr(), m.data_ptr(), tab.data_ptr(), int(tab.shape[0]),
                     rows.data_ptr(), matched.data_ptr(), k.numel(), _num_sms(dev), stream)
     if rc != 0:
-        raise RuntimeError(f"hash_probe launch failed: CUDA error {rc}")
+        raise _launch_error("hash_probe", rc)
     _count("hash_probe")
     return rows, matched
 
@@ -290,7 +300,7 @@ def dict_filter(codes, lut, mask):
         rc = launch(c.data_ptr(), m.data_ptr(), tab.data_ptr(), int(tab.shape[0]),
                     keep.data_ptr(), c.numel(), _num_sms(dev), stream)
     if rc != 0:
-        raise RuntimeError(f"dict_filter launch failed: CUDA error {rc}")
+        raise _launch_error("dict_filter", rc)
     _count("dict_filter")
     return keep
 
@@ -459,7 +469,7 @@ def segmented_sort(a, b, pos):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(*_ptrs(*ins, *outs), *(_ptrs(*scratch) or [None] * 3), P, N, stream)
     if rc != 0:
-        raise RuntimeError(f"segmented_sort launch failed: CUDA error {rc}")
+        raise _launch_error("segmented_sort", rc)
     _count("segmented_sort")
     return outs
 
@@ -523,7 +533,7 @@ def topk_select(a, b, pos, k: int):
         rc = launch(*_ptrs(*ins, *outs), scratch.data_ptr() if n_scratch else None,
                         P, N, c, blocks, span, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"topk_select launch failed: CUDA error {rc}")
+        raise _launch_error("topk_select", rc)
     _count("topk_select")
     return tuple(o[:, :k] for o in outs)
 
@@ -577,6 +587,6 @@ def segmented_scan(vals, boundary, func: str):
         rc = launch(_SCAN_DTYPES[v.dtype], _SCAN_FUNCS[func],
                     *_ptrs(v, f, out, status), P, N, stream)
     if rc != 0:
-        raise RuntimeError(f"segmented_scan launch failed: CUDA error {rc}")
+        raise _launch_error("segmented_scan", rc)
     _count("segmented_scan")
     return out

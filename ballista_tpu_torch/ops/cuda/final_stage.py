@@ -25,7 +25,8 @@ check is kept, so the same stages fall back).
 
 Fallback is runtime-adaptive like the partial path; `match_final_stage`
 pre-lowers every expression at plan time with static kinds so stages that
-CANNOT lower are never wrapped.
+CANNOT lower are never wrapped. A device out-of-memory error spills the
+resident tables and retries once before the stage declines (_device_run).
 """
 
 from __future__ import annotations
@@ -306,7 +307,7 @@ class TpuFinalStageExec(ExecutionPlan):
         with self._results_lock:
             if self._results is None:
                 try:
-                    self._results = self._tpu_run_all(ctx)
+                    self._results = self._device_run(ctx)
                     self.tpu_count += 1
                     self._device_ok = True
                     self._mat_input = None  # success: release the host copy
@@ -319,7 +320,7 @@ class TpuFinalStageExec(ExecutionPlan):
                 # results were already consumed (a consumer re-executed this
                 # partition); re-running the device path costs one pass
                 try:
-                    self._results.update(self._tpu_run_all(ctx))
+                    self._results.update(self._device_run(ctx))
                     self.tpu_count += 1
                     self._mat_input = None
                     self._served_since_dispatch = set()
@@ -336,6 +337,38 @@ class TpuFinalStageExec(ExecutionPlan):
                 self._note_served_locked(partition)
                 return out
         return self._fallback(partition, ctx)
+
+    def _device_run(self, ctx: TaskContext) -> dict[int, list[pa.RecordBatch]]:
+        """_tpu_run_all with the final stage's out-of-memory rung: spill
+        every resident table to the host pool and retry ONCE (re-reading
+        the child, as a decline may); a second out-of-memory error declines
+        with Unsupported, so the CPU engine aggregates the input the retry
+        materialized. No grace rung here. Any other error propagates."""
+        from ballista_tpu_torch.config import TPU_HBM_SPILL_ENABLED
+        from ballista_tpu_torch.ops.cuda import stage_compiler as _sc
+
+        try:
+            return self._tpu_run_all(ctx)
+        except Unsupported:
+            raise
+        except Exception as e:  # noqa: BLE001 — classified: only an OOM is caught
+            if not hbm.is_resource_exhausted(e):
+                raise
+            first = f"{type(e).__name__}: {e}"
+        # out of the handler: the failed attempt's device tensors are freed
+        log.warning("final stage out of device memory; spilling + retrying once: %s", first)
+        spill_pool = hbm.SPILL_POOL if bool(self.config.get(TPU_HBM_SPILL_ENABLED)) else None
+        _sc.DEVICE_CACHE.spill_all(spill_pool)
+        hbm.note_oom(self.fingerprint)
+        hbm.consume_oom_hint(self.fingerprint)  # no grace rung to pre-plan
+        try:
+            res = self._tpu_run_all(ctx)
+        except Exception as e2:  # noqa: BLE001 — classified: only an OOM is caught
+            if hbm.is_resource_exhausted(e2):
+                raise Unsupported(f"final stage OOM persisted after spill+retry: {e2}") from e2
+            raise
+        _sc.RUN_STATS.set("hbm_oom_retries", hbm.oom_retry_count())
+        return res
 
     def _note_served_locked(self, partition: int) -> None:
         """Bound re-run retention (call under _results_lock): when every

@@ -246,7 +246,8 @@ def _admit(est, config: BallistaConfig) -> None:
     from ballista_tpu_torch.ops.cuda.stage_compiler import RUN_STATS
 
     budget = hbm.resolve_hbm_budget(config)
-    plan = hbm.plan_stage(est, budget, grace_eligible=False)
+    plan = hbm.plan_stage(est, budget, grace_eligible=False, grace_fanout=2,
+                          grace_max_depth=0)
     RUN_STATS.set("hbm_budget_bytes", budget)
     RUN_STATS.set("hbm_plan", plan.decision)
     RUN_STATS.set("hbm_plan_reason", plan.reason)

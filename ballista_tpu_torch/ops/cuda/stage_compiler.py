@@ -34,11 +34,18 @@ output partition 0, with an optional device-computed `__pid` shuffle
 column. `staged` mode runs the predicate, project and aggregate spans as
 separate dispatches (_compile_staged).
 
+Out of core (ops/cuda/hbm.py): every stage is admitted against the
+device budget before its pass. Cold resident tables demote to the host
+spill pool and re-upload on their next touch; a join stage over budget
+grace-splits its largest inner-join build into sub-buckets run one after
+another (_grace_run); a device out-of-memory error spills every resident
+table and retries the stage once (_dispatch_all).
+
 Any other shape raises `Unsupported` and the subtree re-runs on the CPU
 engine, counted in `fallback_count`: a group capacity overflow, the mesh,
-the daemon, and the spill and grace rungs. Only `Unsupported` falls back:
-a kernel build or launch error, or a missing card, raises out of the
-query.
+the daemon, a stage past the grace depth cap, a second out-of-memory
+error. Only `Unsupported` falls back: a kernel build or launch error, or a
+missing card, raises out of the query.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ import contextlib
 import itertools
 import logging
 import os
+import tempfile
 import threading
 import time
 import zlib
@@ -61,6 +69,11 @@ from ballista_tpu_torch.config import (
     TPU_COMPILE_CACHE_DIR,
     TPU_FILL_THREADS,
     TPU_FUSION_PALLAS_MAX_GROUPS,
+    TPU_HBM_GRACE_BUCKETS,
+    TPU_HBM_GRACE_DEPTH,
+    TPU_HBM_SPILL_DIR,
+    TPU_HBM_SPILL_ENABLED,
+    TPU_HBM_SPILL_HOST_BYTES,
     TPU_MAX_DEVICE_BYTES,
     TPU_MIN_ROWS,
     BallistaConfig,
@@ -82,6 +95,7 @@ from ballista_tpu_torch.ops.cuda.kernels import (
 from ballista_tpu_torch.plan.expressions import Alias, Column, Expr
 from ballista_tpu_torch.plan.physical import (
     CoalesceBatchesExec,
+    CoalescePartitionsExec,
     ExecutionPlan,
     FilterExec,
     HashAggregateExec,
@@ -126,7 +140,10 @@ class RunStats:
     seconds), fusion_mode (fused_xla | fused_pallas | staged — the mode
     that actually ran), fusion_reason (the cost model's stated rationale),
     fused_spans (operator spans run in the stage pass), hbm_budget_bytes,
-    hbm_plan (run_whole | cpu_demote) and hbm_plan_reason; the sorted
+    hbm_plan (run_whole | spill_colds | grace_split | cpu_demote),
+    hbm_plan_reason, grace_splits (sub-buckets run), and the spill pool's
+    cumulative hbm_spill_bytes, hbm_spill_events, hbm_reupload_events with
+    hbm_oom_retries (the out-of-memory retries so far); the sorted
     aggregation adds sort_s (device seconds of its sort), live_rows (rows
     sorted), n_seg (groups) and seg_capacity (C)."""
 
@@ -319,7 +336,8 @@ class DeviceTableCache:
         return self.key_of(scan) + (str(device),)
 
     def get(self, scan, buckets: list[int], ctx, max_bytes: int, device, *,
-            fill_threads: int = 0, stats: dict | None = None) -> DeviceTable:
+            fill_threads: int = 0, stats: dict | None = None,
+            spill_pool=None) -> DeviceTable:
         key = self.table_key(scan, device)
         with self._lock:
             hit = self._cache.get(key)
@@ -340,16 +358,27 @@ class DeviceTableCache:
             return hit
         try:
             t0 = time.time()
-            dt = self._load(scan, buckets, ctx, device, fill_threads=fill_threads,
-                            stats=stats)
+            # a previously demoted table re-uploads from its host (or disk)
+            # copy instead of re-running the read + encode fill: the
+            # transparent-on-touch half of the spill contract
+            restored = spill_pool.pop(key) if spill_pool is not None else None
+            if restored is not None:
+                dt = _restore_device_table(restored, device)
+            else:
+                dt = self._load(scan, buckets, ctx, device, fill_threads=fill_threads,
+                                stats=stats)
             RUN_STATS.set("fill_s", round(time.time() - t0, 3), rec=stats)
             RUN_STATS.set("device_bytes", dt.nbytes, rec=stats)
+            victims = []
             with self._lock:
                 total = sum(v.nbytes for v in self._cache.values())
                 while self._cache and total + dt.nbytes > max_bytes:
-                    _old_key, old = self._cache.popitem(last=False)
-                    total -= old.nbytes
+                    victims.append(self._cache.popitem(last=False))
+                    total -= victims[-1][1].nbytes
                 self._cache[key] = dt
+            if spill_pool is not None:
+                for old_key, old in victims:
+                    _spill_device_table(spill_pool, old_key, old)
             return dt
         finally:
             with self._lock:
@@ -362,9 +391,44 @@ class DeviceTableCache:
             return self._cache.get(self.table_key(scan, device))
 
     def resident_bytes(self, exclude_key: tuple | None = None) -> int:
-        """Device bytes held by cached tables other than `exclude_key`."""
+        """Device bytes held by cached tables other than `exclude_key`: the
+        admission planner's `resident_other` (cold residency that
+        spill_colds can reclaim)."""
         with self._lock:
             return sum(v.nbytes for k, v in self._cache.items() if k != exclude_key)
+
+    def ensure_headroom(self, max_bytes: int, keep_key: tuple | None,
+                        spill_pool=None) -> int:
+        """Demote cold entries (all but `keep_key`), oldest first, until
+        residency fits `max_bytes`. Returns bytes freed. The spill_colds
+        admission rung."""
+        freed = 0
+        victims = []
+        with self._lock:
+            total = sum(v.nbytes for v in self._cache.values())
+            for k in list(self._cache):
+                if total <= max_bytes:
+                    break
+                if k == keep_key:
+                    continue
+                old = self._cache.pop(k)
+                total -= old.nbytes
+                freed += old.nbytes
+                victims.append((k, old))
+        if spill_pool is not None:
+            for k, old in victims:
+                _spill_device_table(spill_pool, k, old)
+        return freed
+
+    def spill_all(self, spill_pool=None) -> None:
+        """Demote every resident table: the out-of-memory rung frees the
+        whole card before its one retry."""
+        with self._lock:
+            items = list(self._cache.items())
+            self._cache.clear()
+        if spill_pool is not None:
+            for k, old in items:
+                _spill_device_table(spill_pool, k, old)
 
     def clear(self) -> None:
         with self._lock:
@@ -485,15 +549,54 @@ class DeviceTableCache:
         return DeviceTable(kinds, scales, dicts, cols, mask, part_rows, nbytes, valids)
 
 
+def _record_spill_stats(rec: dict, spill_pool) -> None:
+    """Mirror the host spill pool's cumulative counters into the run
+    record."""
+    if spill_pool is None:
+        return
+    st = spill_pool.stats()
+    RUN_STATS.set("hbm_spill_bytes", st["spill_bytes"], rec=rec)
+    RUN_STATS.set("hbm_spill_events", st["spill_events"], rec=rec)
+    RUN_STATS.set("hbm_reupload_events", st["reupload_events"], rec=rec)
+    RUN_STATS.set("hbm_oom_retries", hbm.oom_retry_count(), rec=rec)
+
+
+def _spill_device_table(pool, key: tuple, dt: DeviceTable) -> None:
+    """Demote one cached DeviceTable to the host spill pool: copy every
+    plane back to numpy and hand the flat list (cols, mask, valids, None
+    slots kept) with the encode metadata to the pool, which owns the
+    tiering (host buffers or tmp+rename disk files)."""
+    flat = ([c.cpu().numpy() for c in dt.cols] + [dt.mask.cpu().numpy()]
+            + [None if v is None else v.cpu().numpy() for v in dt.valids])
+    meta = (list(dt.kinds), list(dt.scales), list(dt.dicts),
+            list(dt.part_rows), int(dt.nbytes))
+    pool.put(key, meta, flat, int(dt.nbytes))
+
+
+def _restore_device_table(restored, device) -> DeviceTable:
+    """Re-upload a spilled table: the inverse of _spill_device_table,
+    through the same placement point (_put) as the cold fill."""
+    meta, flat = restored
+    kinds, scales, dicts, part_rows, nbytes = meta
+    n = len(kinds)
+    cols = [_put(a, device) for a in flat[:n]]
+    mask = _put(flat[n], device)
+    valids = [None if a is None else _put(a, device) for a in flat[n + 1:]]
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)  # fill_s means "table resident", as in _load
+    return DeviceTable(kinds, scales, dicts, cols, mask, part_rows, nbytes, valids)
+
+
 DEVICE_CACHE = DeviceTableCache()
 
 
 def clear_device_caches() -> None:
     """Release every module-level device cache: resident tables, string
-    LUTs and join build tables."""
+    LUTs, join build tables and the tables spilled to the host pool."""
     DEVICE_CACHE.clear()
     _LUT_CACHE.clear()
     _BUILD_CACHE.clear()
+    hbm.SPILL_POOL.clear()
 
 
 class TpuStageExec(ExecutionPlan):
@@ -601,12 +704,44 @@ class TpuStageExec(ExecutionPlan):
         if self._results and set(self._results) <= self._served_since_dispatch:
             self._results = {}
 
+    def _spill_pool(self):
+        """The host spill pool, or None when ballista.tpu.hbm.spill.enabled
+        is off (evicted tables are then dropped)."""
+        return hbm.SPILL_POOL if bool(self.config.get(TPU_HBM_SPILL_ENABLED)) else None
+
     def _dispatch_all(self, ctx: TaskContext) -> dict[int, list[pa.RecordBatch]]:
         """One whole-stage dispatch on the task's card (or the CPU when the
-        caller asked for it)."""
+        caller asked for it), with the out-of-memory rung: the estimate said
+        the stage fits and the card disagreed. Spill every resident table
+        (their fills are kept in the host pool), drop the LUT and build
+        caches, hint the planner to pre-plan grace for this stage, and retry
+        ONCE; a second out-of-memory error demotes the stage to the CPU
+        engine. Any other error propagates."""
         tag = f"stage_{zlib.crc32(self.fingerprint.encode()):08x}"
         with RUN_STATS.run(tag) as rec:
-            return self._tpu_run_all_inner(ctx, rec)
+            try:
+                return self._tpu_run_all_inner(ctx, rec)
+            except Unsupported:
+                raise
+            except Exception as e:  # noqa: BLE001 — classified: only an OOM is caught
+                if not hbm.is_resource_exhausted(e):
+                    raise
+                first = f"{type(e).__name__}: {e}"
+            # out of the handler: the failed attempt's frames (and the device
+            # tensors they hold) are released before the retry allocates
+            log.warning("device out of memory; spilling + retrying stage once: %s", first)
+            DEVICE_CACHE.spill_all(self._spill_pool())
+            _LUT_CACHE.clear()
+            _BUILD_CACHE.clear()
+            hbm.note_oom(self.fingerprint)
+            rec["hbm_oom_retries"] = hbm.oom_retry_count()
+            try:
+                return self._tpu_run_all_inner(ctx, rec)
+            except Exception as e2:  # noqa: BLE001 — classified: only an OOM is caught
+                if hbm.is_resource_exhausted(e2):
+                    raise Unsupported(
+                        f"device OOM persisted after spill+retry: {e2}") from e2
+                raise
 
     def _raw_chain(self) -> ExecutionPlan:
         """The original pre-aggregation subtree this wrapper replaced,
@@ -624,20 +759,36 @@ class TpuStageExec(ExecutionPlan):
     def _fallback(self, partition: int, ctx: TaskContext) -> list[pa.RecordBatch]:
         """Re-run the original CPU subtree (scan filters applied on host)."""
         self.fallback_count += 1
-        agg = self.partial_agg.with_children([self._raw_chain()])
+        node = self._raw_chain()
+        if self.emit_pid is not None:
+            # device-routed layout: the device path ships every group through
+            # partition 0 (__pid routing) and empties the others. A demotion
+            # after some device partitions were served must keep that shape,
+            # or a classic partition-p partial counts their groups twice:
+            # partition 0 aggregates the whole input, the others stay empty.
+            # The shuffle writer's host hash routes each group as __pid did.
+            if partition != 0:
+                return [_empty_batch(self.schema())]
+            node = CoalescePartitionsExec(node)
+        agg = self.partial_agg.with_children([node])
         return [b for b in agg.execute(partition, ctx)]
 
     # ------------------------------------------------------------------
 
     def _prepare_build(self, join, jidx: int, ctx: TaskContext, table_key,
-                       device) -> BuildTable:
+                       device, grace: tuple[int, int] | None = None) -> BuildTable:
         """Collect + encode a join's build side for device probing: the
-        direct unique and direct expansion layouts, with the payload
-        columns the probe gathers (none for a filterless semi/anti join)."""
+        direct unique, direct expansion and sorted layouts, with the payload
+        columns the probe gathers (none for a filterless semi/anti join).
+
+        `grace=(bucket, n_buckets)`: keep only the build rows whose combined
+        key falls in that secondary-hash sub-bucket (the grace split).
+        Sub-builds carry their bucket in the cache key: a sub-build and the
+        whole build never alias."""
         from ballista_tpu_torch.ops.cuda.columnar import encode_column
         from ballista_tpu_torch.ops.phys_expr import bind_expr, evaluate_to_array
 
-        cache_key = (table_key, self.fingerprint, jidx, str(device))
+        cache_key = (table_key, self.fingerprint, jidx, str(device), grace)
         hit = _BUILD_CACHE.get(cache_key)
         if hit is not None:
             return hit
@@ -692,6 +843,14 @@ class TpuStageExec(ExecutionPlan):
                     raise Unsupported("primary join key out of combine range")
                 key_np = (key_np << shift) | vals
                 shifts.append(shift)
+        if grace is not None:
+            bucket, n_buckets = grace
+            sel = hbm.grace_bucket_of(key_np, n_buckets) == bucket
+            if not sel.any():
+                raise Unsupported(f"empty grace sub-bucket {bucket}/{n_buckets}")
+            key_np = key_np[sel]
+            tbl = tbl.filter(pa.array(sel)).combine_chunks()
+            batch = tbl.to_batches()[0]
         uniq, counts = np.unique(key_np, return_counts=True)
         dup = int(counts.max())
         membership_only = join.join_type in ("right_semi", "right_anti") and join.filter is None
@@ -799,18 +958,22 @@ class TpuStageExec(ExecutionPlan):
         return cm.choose(est), est
 
     def _run_mode(self, dt: DeviceTable, builds: list[BuildTable], table_key,
-                  rec: dict, mode_req: str):
+                  rec: dict, mode_req: str, cache_luts: bool = True):
         """Lower the stage for `mode_req` and run it once over the table.
         Lowering builds closures only (PyTorch runs eagerly), so nothing is
-        cached but the device LUTs. Returns (meta, device outputs)."""
+        cached but the device LUTs, and not those of a grace sub-run
+        (`cache_luts` False): a sub-build's dictionaries depend on its
+        bucket, which the LUT key does not hold. Returns (meta, device
+        outputs)."""
         fn, lowering, meta = self._compile(dt, builds, mode_req)
         emit_key = (tuple(self.emit_pid[0]), self.emit_pid[1]) if self.emit_pid else None
         lut_key = (table_key, self.fingerprint, emit_key, str(dt.mask.device))
-        luts = _LUT_CACHE.get(lut_key)
+        luts = _LUT_CACHE.get(lut_key) if cache_luts else None
         if luts is None:
             luts = [_put(l, dt.mask.device)
                     for l in lowering.build_luts(dt.dicts, [b.dicts for b in builds])]
-            _LUT_CACHE[lut_key] = luts
+            if cache_luts:
+                _LUT_CACHE[lut_key] = luts
         t0 = time.time()
         outs, run_meta = fn(dt.flat_cols(), luts, dt.mask,
                             [b.flat_arrays() for b in builds])
@@ -831,18 +994,18 @@ class TpuStageExec(ExecutionPlan):
         return {**meta, **run_meta}, outs
 
     def _run_stage(self, dt: DeviceTable, builds: list[BuildTable], table_key,
-                   rec: dict, mode_req: str):
+                   rec: dict, mode_req: str, cache_luts: bool = True):
         """The fallback ladder's top rung: a fused_pallas request whose
         stage turns out kernel-ineligible when it runs raises Unsupported
         — retry once as fused_xla instead of knocking the whole stage off
         the device."""
         try:
-            return self._run_mode(dt, builds, table_key, rec, mode_req)
+            return self._run_mode(dt, builds, table_key, rec, mode_req, cache_luts)
         except Unsupported:
             if mode_req != "fused_pallas":
                 raise
             log.info("fused_pallas ineligible; retrying fused_xla")
-            return self._run_mode(dt, builds, table_key, rec, "fused_xla")
+            return self._run_mode(dt, builds, table_key, rec, "fused_xla", cache_luts)
 
     def _tpu_run_all_inner(self, ctx: TaskContext,
                            rec: dict) -> dict[int, list[pa.RecordBatch]]:
@@ -856,13 +1019,24 @@ class TpuStageExec(ExecutionPlan):
         max_bytes = int(self.config.get(TPU_MAX_DEVICE_BYTES))
         budget = hbm.resolve_hbm_budget(self.config)
         if budget > 0:
-            # the cache cap never exceeds the admission budget
+            # the cache cap never exceeds the admission budget: a shrunk
+            # budget drives real evictions (and so spills)
             max_bytes = min(max_bytes, budget)
+        spill_pool = self._spill_pool()
+        if spill_pool is not None:
+            from ballista_tpu_torch.executor import disk as _disk
+
+            sdir = str(self.config.get(TPU_HBM_SPILL_DIR) or "")
+            spill_pool.configure(
+                int(self.config.get(TPU_HBM_SPILL_HOST_BYTES)), sdir,
+                # under disk pressure demotions stay in the host tier
+                spill_gate=lambda: _disk.spill_allowed(self.config,
+                                                       sdir or tempfile.gettempdir()))
         table_key = DEVICE_CACHE.key_of(self.scan)
         join_ops = [o for o in self.ops if isinstance(o, HashJoinExec)]
         dt = DEVICE_CACHE.get(self.scan, self.buckets, ctx, max_bytes, device,
                               fill_threads=int(self.config.get(TPU_FILL_THREADS)),
-                              stats=rec)
+                              stats=rec, spill_pool=spill_pool)
         if sum(dt.part_rows) < self.min_rows:
             raise Unsupported(f"only {sum(dt.part_rows)} rows (< tpu min)")
         t_b = time.time()
@@ -873,28 +1047,127 @@ class TpuStageExec(ExecutionPlan):
 
         dec, est = self._fusion_decision(dt, builds)
         rec["fusion_reason"] = dec.reason
+
+        # admission: every stage states its memory plan before the pass.
+        # Splitting is only sound for an INNER join's build: a probe row's
+        # whole match set shares its key's sub-bucket, so the other
+        # sub-runs see it as an ordinary unmatched probe; outer/anti joins
+        # would re-emit it once per bucket.
+        grace_fanout = int(self.config.get(TPU_HBM_GRACE_BUCKETS))
+        grace_depth_cap = int(self.config.get(TPU_HBM_GRACE_DEPTH))
         my_key = DEVICE_CACHE.table_key(self.scan, device)
         plan = hbm.plan_stage(
             est, budget,
             grace_eligible=(not est.has_mult and 0 <= est.max_build_jidx < len(join_ops)
                             and join_ops[est.max_build_jidx].join_type == "inner"),
+            grace_fanout=grace_fanout,
+            grace_max_depth=grace_depth_cap,
             resident_other=DEVICE_CACHE.resident_bytes(exclude_key=my_key),
+            observed_bytes=int(getattr(self, "hbm_observed_input_bytes", 0) or 0),
+            force_grace=hbm.consume_oom_hint(self.fingerprint),
         )
         rec["hbm_budget_bytes"] = budget
         rec["hbm_plan"] = plan.decision
         rec["hbm_plan_reason"] = plan.reason
         if plan.decision == hbm.CPU_DEMOTE:
+            _record_spill_stats(rec, spill_pool)
             raise Unsupported(f"hbm plan: {plan.reason}")
+        if plan.decision == hbm.SPILL_COLDS:
+            DEVICE_CACHE.ensure_headroom(max(budget - plan.working_set, 0), my_key,
+                                         spill_pool)
+        if plan.decision == hbm.GRACE_SPLIT:
+            try:
+                return self._grace_run(ctx, rec, dt, join_ops, builds, plan,
+                                       grace_fanout, grace_depth_cap, table_key,
+                                       device, dec)
+            finally:
+                _record_spill_stats(rec, spill_pool)
 
         t0 = time.time()
         meta, outs = self._run_stage(dt, builds, table_key, rec, dec.mode)
         rec["fusion_mode"] = meta.get("fusion_mode", "fused_xla")
         rec["fused_spans"] = meta.get("fused_spans", 0)
-        outs = [o.cpu().numpy() for o in outs]  # one fetch per output
-        decode = self._decode_sorted if meta["mode"] == "sorted" else self._decode_all
-        res = decode(outs, meta, dt.shape[0], dt.dicts, [b.dicts for b in builds])
+        res = self._fetch_decode(outs, meta, dt, builds)
         rec["exec_s"] = round(time.time() - t0, 6)
+        _record_spill_stats(rec, spill_pool)
         return res
+
+    def _fetch_decode(self, outs, meta: dict, dt: DeviceTable,
+                      builds: list[BuildTable]) -> dict[int, list[pa.RecordBatch]]:
+        """One fetch per device output, then the decode of the stage's
+        mode into per-partition batches."""
+        outs = [o.cpu().numpy() for o in outs]
+        decode = self._decode_sorted if meta["mode"] == "sorted" else self._decode_all
+        return decode(outs, meta, dt.shape[0], dt.dicts, [b.dicts for b in builds])
+
+    def _grace_run(self, ctx: TaskContext, rec: dict, dt: DeviceTable,
+                   join_ops: list, builds: list[BuildTable], plan,
+                   fanout: int, depth_cap: int, table_key, device,
+                   dec) -> dict[int, list[pa.RecordBatch]]:
+        """Grace-partitioned execution of a budget-breaking hash-join stage.
+
+        The split join's build side re-splits by a secondary hash of the
+        combined int64 key (hbm.grace_bucket_of) into `plan.grace_buckets`
+        sub-buckets, each run in turn over the full probe table through
+        _run_stage, so the fused_pallas → fused_xla ladder still applies.
+        Probe rows are never re-ordered: a row whose key lives in bucket b
+        matches only in run b and is an ordinary unmatched probe in every
+        other run, so the per-partition partial-aggregate batches,
+        concatenated in bucket order, are the whole run's partials split by
+        bucket; the final aggregate merges them. Their float sums associate
+        per sub-bucket partial, so they may differ from the whole run's in
+        the last bits. Empty sub-builds are skipped; the GraceReport
+        postconditions are checked before anything is served."""
+        from ballista_tpu_torch.analysis.plan_check import check_grace
+
+        t0 = time.time()
+        P = dt.shape[0]
+        n_buckets = int(plan.grace_buckets)
+        jsplit = int(plan.split_jidx)
+        merged: dict[int, list[pa.RecordBatch]] = {p: [] for p in range(P)}
+        buckets_run: list[int] = []
+        buckets_empty: list[int] = []
+        kernel_s = 0.0
+        for b in range(n_buckets):
+            try:
+                sub_builds = [
+                    self._prepare_build(op, j, ctx, table_key, device,
+                                        grace=(b, n_buckets))
+                    if j == jsplit else builds[j]
+                    for j, op in enumerate(join_ops)
+                ]
+            except Unsupported as e:
+                if "empty grace sub-bucket" in str(e):
+                    buckets_empty.append(b)
+                    continue
+                raise
+            meta, outs = self._run_stage(dt, sub_builds, table_key, rec, dec.mode,
+                                         cache_luts=False)
+            kernel_s += rec["fused_kernel_s"]
+            rec["fusion_mode"] = meta.get("fusion_mode", "fused_xla")
+            rec["fused_spans"] = meta.get("fused_spans", 0)
+            res = self._fetch_decode(outs, meta, dt, sub_builds)
+            for p, bl in res.items():
+                merged[p].extend(x for x in bl if x.num_rows)
+            buckets_run.append(b)
+
+        report = hbm.GraceReport(
+            stage_tag=f"stage_{zlib.crc32(self.fingerprint.encode()):08x}",
+            n_buckets=n_buckets, fanout=max(2, int(fanout)),
+            depth=int(plan.grace_depth), max_depth=int(depth_cap),
+            buckets_run=buckets_run, buckets_empty=buckets_empty)
+        violations = check_grace(report)
+        if violations:
+            # the merged output cannot be trusted: demote to the CPU engine
+            # instead of serving it
+            raise Unsupported("grace postcondition violated: "
+                              + "; ".join(v.message for v in violations))
+        rec["grace_splits"] = len(buckets_run)
+        rec["fused_kernel_s"] = round(kernel_s, 6)  # summed over the sub-runs
+        rec["exec_s"] = round(time.time() - t0, 6)  # sub-builds included
+        schema = self.schema()
+        return {p: (bl if bl else [_empty_batch(schema)])
+                for p, bl in merged.items()}
 
     # ------------------------------------------------------------------
 

@@ -79,7 +79,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
    under a hand-built hash ShuffleWriterExec of 16 partitions, every
    written row hashing on the host (ops/hashing) to its own partition and
    the rows together equal to the engine=cpu answer (both at --q4-scale);
-7. print one JSON line of kernel numbers, the card line, and last
+   phases 4-6 run with the host spill pool off, so an evicted table is
+   dropped as before the pool existed;
+7. out of core, with the spill pool on: (a) q3 with hbm_oom chaos armed
+   (the first upload raises once) spills, retries once and answers as in
+   phase 6 (floats within rtol 1e-9), its peak device memory recorded;
+   (b) a real torch.cuda.OutOfMemoryError: q1's and q6's tables resident,
+   one blocker tensor holding the card's free memory less a margin between
+   (a)'s peak less the residents and a cold whole q3 run's peak, q3's
+   first attempt runs out of memory, the spill of the residents makes room
+   and the retry answers as in phase 6; (c) q1, q6,
+   q1 under a budget that holds one of their tables: q6's fill spills q1's
+   table to host buffers and the second q1 restores it with no encode,
+   every plane's CRC-32 unchanged, answers equal to phase 4's exactly;
+   (d) q5 at its working set (phase 4's admission reason) less 1 byte: a
+   grace split into 4 sub-buckets, one cold run, best of 3, one traced
+   run, answers equal to phase 4's device and CPU answers (revenue within
+   rtol 1e-9), no fallback, hash_probe twice per sub-run; then at
+   --q4-scale (e) q5 at a budget that needs 16 sub-buckets (depth 2),
+   equal to its whole run, and (f) the round trip of (c) through the disk
+   tier (host tier cut to 1 byte), leaving no .tmp file. Chaos is disarmed,
+   the blocker freed and every cache cleared in `finally`;
+8. print one JSON line of kernel numbers, the card line, and last
    {"ok": true, "device": {...}}.
 
 Options: --scale (q1/q6/q5/q12 scale factor, default 10), --q4-scale
@@ -106,7 +127,14 @@ QUERY_CONFIG = {
     # final merges are a few hundred partial rows: without this the final
     # stage declines to the CPU engine by design (ballista.tpu.min.rows)
     "ballista.tpu.min.rows": 0,
+    # phases 4-6 evict cold tables by dropping them, as they did before the
+    # spill pool existed; phase 7 turns the pool on where it tests it
+    "ballista.tpu.hbm.spill.enabled": False,
 }
+# phase 7's spill pool: on, with host buffers large enough that no table
+# reaches the disk tier unless a check asks for it
+SPILL_CONFIG = {**QUERY_CONFIG, "ballista.tpu.hbm.spill.enabled": True,
+                "ballista.tpu.hbm.spill.host.bytes": 64 << 30}
 
 
 def log(msg: str) -> None:
@@ -707,7 +735,7 @@ PATHS = {
 }
 
 
-def run_query(q: int, data_dir: str, dev, busy_ok: bool) -> dict:
+def run_query(q: int, data_dir: str, dev, busy_ok: bool, answers: dict | None = None) -> dict:
     from ballista_tpu_torch.client.context import SessionContext
     from ballista_tpu_torch.config import BallistaConfig
     from ballista_tpu_torch.engine.cuda_engine import maybe_compile_tpu
@@ -795,6 +823,8 @@ def run_query(q: int, data_dir: str, dev, busy_ok: bool) -> dict:
         log(f"q{q}: profiler busy {busy:.4f} ms is below the table's byte floor "
             f"{busy_floor_ms:.4f} ms: reported as null")
         busy = None
+    if answers is not None:
+        answers[q] = (tbl, cpu_tbl)  # the device answer of the last timed run
     return {
         "query": f"q{q}", "wall_s": times[best], "times_s": times,
         "plan_s": plan_times[best],
@@ -805,6 +835,7 @@ def run_query(q: int, data_dir: str, dev, busy_ok: bool) -> dict:
         "fused_kernel_s": warm.get("fused_kernel_s"),
         "device_bytes": cold.get("device_bytes"), "fusion_mode": mode,
         "fusion_reason": warm.get("fusion_reason"),
+        "hbm_plan_reason": cold.get("hbm_plan_reason"),
         "stage_shape": list(dt.shape) if dt is not None else None,
         "kernel_launches_per_run": run_launches, "cpu_engine_s": cpu_s,
         "traced_wall_s": traced_wall, "device_busy_ms": busy, "top_device_ops": top_ops,
@@ -940,7 +971,8 @@ SORTED_QUERIES = {
 }
 
 
-def run_sorted_query(q: int, data_dir: str, dev, busy_ok: bool, extra_cfg: dict) -> dict:
+def run_sorted_query(q: int, data_dir: str, dev, busy_ok: bool, extra_cfg: dict,
+                     answers: dict | None = None) -> dict:
     """One query of the sorted aggregation's phase: the port's engine=cpu
     answer, then one warm-up and best of 3 with engine=tpu, each checked
     against it, every device stage on the card with no fallback and at
@@ -1016,6 +1048,8 @@ def run_sorted_query(q: int, data_dir: str, dev, busy_ok: bool, extra_cfg: dict)
                      key=lambda r: -r[1])[:6]
     keep = ("n_seg", "seg_capacity", "live_rows", "sort_s", "fused_kernel_s", "exec_s",
             "build_s", "build_modes", "fusion_mode", "fusion_reason")
+    if answers is not None:
+        answers[q] = (tbl, cpu_tbl)
     return {
         "query": f"q{q}", "wall_s": times[best], "times_s": times, "plan_s": plan_times[best],
         "cold_wall_s": cold_wall, "rows_out": cpu_tbl.num_rows,
@@ -1134,6 +1168,419 @@ def routing_check(data_dir: str, k: int = 16) -> dict:
             "k": k, "write_s": write_s, "pid_emitted": stage.pid_emitted}
 
 
+# ---------------------------------------------------------------- out of core
+
+def _ooc_run(data_dir: str, q: int, cfg: dict):
+    """One run of TPC-H q`q` through SessionContext with engine=tpu and
+    `cfg`: (answer, the partial stages' records, every device stage, wall s)."""
+    from ballista_tpu_torch.client.context import SessionContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.engine.cuda_engine import maybe_compile_tpu
+    from ballista_tpu_torch.ops.cuda.final_stage import TpuFinalStageExec
+    from ballista_tpu_torch.ops.cuda.stage_compiler import RUN_STATS, TpuStageExec
+    from ballista_tpu_torch.testing.tpchgen import register_tpch
+
+    with open(os.path.join(ROOT, "benchmarks", "tpch", "queries", f"q{q}.sql")) as f:
+        sql = f.read()
+    ctx = SessionContext(BallistaConfig(cfg))
+    register_tpch(ctx, data_dir)
+    t0 = time.time()
+    physical = maybe_compile_tpu(ctx.create_physical_plan(ctx.sql(sql).plan), ctx.config)
+    tbl = ctx.execute_collect(physical)
+    wall = time.time() - t0
+    stages = [n for n in _walk(physical) if isinstance(n, (TpuStageExec, TpuFinalStageExec))]
+    recs = RUN_STATS.stages()
+    partial = [s for s in stages if isinstance(s, TpuStageExec)]
+    if not partial:
+        raise AssertionError(f"q{q}: no device partial stage was planned")
+    for s in stages:
+        if s.tpu_count < 1 or s.fallback_count != 0:
+            raise AssertionError(f"q{q}: {s.node_str()} did not run on the card "
+                                 f"(device_runs={s.tpu_count}, fallbacks={s.fallback_count})")
+    return tbl, [dict(recs.get(_tag(s), {})) for s in partial], partial, wall
+
+
+def _fresh_card() -> None:
+    """Drop every cached table, build, LUT and spilled table, and hand the
+    allocator's cached blocks back to the card."""
+    import torch
+
+    from ballista_tpu_torch.ops.cuda.stage_compiler import RUN_STATS, clear_device_caches
+
+    clear_device_caches()
+    RUN_STATS.clear()
+    torch.cuda.empty_cache()
+
+
+def _digest(dt) -> list:
+    """Per plane of a device table (columns, row mask, validity planes, None
+    slots kept): dtype, shape and the CRC-32 of its bytes."""
+    import zlib
+
+    import numpy as np
+
+    out = []
+    for t in list(dt.cols) + [dt.mask] + list(dt.valids):
+        if t is None:
+            out.append(None)
+            continue
+        a = np.ascontiguousarray(t.cpu().numpy()).reshape(-1).view(np.uint8)
+        out.append((str(t.dtype), tuple(t.shape), zlib.crc32(a)))
+    return out
+
+
+def _grace_rec(recs: list, q: str) -> dict:
+    got = [r for r in recs if r.get("hbm_plan") == "grace_split"]
+    if len(got) != 1:
+        raise AssertionError(f"{q}: {len(got)} grace-split stages, expected 1: "
+                             f"{[r.get('hbm_plan_reason') for r in recs]}")
+    return got[0]
+
+
+def _working_set(reason: str) -> int:
+    import re
+
+    m = re.search(r"working set (\d+) B", reason or "")
+    if m is None:
+        raise AssertionError(f"no working set in the admission reason {reason!r}")
+    return int(m.group(1))
+
+
+def spill_touch_check(data_dir: str, tier: str, ref: dict, dev) -> dict:
+    """q1, then q6, then q1 again under a device budget that holds either
+    lineitem table but not both: q6's fill demotes q1's table to the spill
+    pool (`tier` "host": host buffers; "disk": npz files, the host tier cut
+    to 1 byte), and the second q1 restores it with no encode. Each answer
+    equals `ref`'s device answer exactly; the restored planes equal the
+    spilled ones (CRC-32 per plane); the disk tier leaves no .tmp file.
+    `ref` maps 1 and 6 to (answer, device bytes)."""
+    import shutil
+
+    from ballista_tpu_torch.ops.cuda import hbm
+    from ballista_tpu_torch.ops.cuda import stage_compiler as sc
+
+    b1, b6 = ref[1][1], ref[6][1]
+    spill_dir = os.path.join(ROOT, "build", "hbm_spill")
+    shutil.rmtree(spill_dir, ignore_errors=True)
+    cfg = {**SPILL_CONFIG, "ballista.tpu.hbm.budget.bytes": max(b1, b6) + min(b1, b6) // 2,
+           "ballista.tpu.hbm.spill.host.bytes": 2 * max(b1, b6) if tier == "host" else 1,
+           "ballista.tpu.hbm.spill.dir": spill_dir}
+
+    def files():
+        names = os.listdir(spill_dir) if os.path.isdir(spill_dir) else []
+        if any(n.endswith(".tmp") for n in names):
+            raise AssertionError(f"spill {tier}: a .tmp file was left behind: {names}")
+        return [n for n in names if n.endswith(".npz")]
+
+    spills = []
+    orig = sc._spill_device_table
+
+    def timed_spill(pool, key, dt):
+        t0 = time.time()
+        orig(pool, key, dt)
+        spills.append((dt.nbytes, time.time() - t0))
+
+    _fresh_card()
+    sc._spill_device_table = timed_spill
+    try:
+        st0 = hbm.SPILL_POOL.stats()
+        t1, r1, s1, w1 = _ooc_run(data_dir, 1, cfg)
+        q1_scan = s1[0].scan
+        before = _digest(sc.DEVICE_CACHE.peek(q1_scan, dev))
+        t6, r6, _s6, w6 = _ooc_run(data_dir, 6, cfg)
+        st6 = hbm.SPILL_POOL.stats()
+        if sc.DEVICE_CACHE.peek(q1_scan, dev) is not None or not spills or spills[0][0] != b1:
+            raise AssertionError(f"spill {tier}: q6's fill did not demote q1's table "
+                                 f"({spills}, {st6})")
+        if tier == "disk" and len(files()) != 1:
+            raise AssertionError(f"spill disk: {files()} after q1's demotion")
+        t1b, r1b, _s1b, w1b = _ooc_run(data_dir, 1, cfg)
+        st1 = hbm.SPILL_POOL.stats()
+        after = _digest(sc.DEVICE_CACHE.peek(q1_scan, dev))
+    finally:
+        sc._spill_device_table = orig
+    if st1["reupload_events"] != st0["reupload_events"] + 1 or "encode_s" in r1b[0]:
+        raise AssertionError(f"spill {tier}: q1 was not restored from the pool ({st1}, {r1b[0]})")
+    if after != before:
+        raise AssertionError(f"spill {tier}: the restored planes differ from the spilled ones")
+    for name, got, want in (("q1", t1, ref[1][0]), ("q6", t6, ref[6][0]), ("q1 restored", t1b,
+                                                                           ref[1][0])):
+        if not got.equals(want):
+            raise AssertionError(f"spill {tier}: {name}'s answer differs from the reference run")
+    n_files = len(files()) if tier == "disk" else None  # q6's table, demoted by q1's restore
+    if tier == "disk" and n_files != 1:
+        raise AssertionError(f"spill disk: {n_files} npz files after the restore, expected 1")
+    log(f"spill {tier}: q1 ({b1} B) spilled in {spills[0][1]:.3f}s and restored bitwise in "
+        f"fill_s {r1b[0].get('fill_s')} (cold fill_s {r1[0].get('fill_s')}); answers exact")
+    return {"query": f"spill_touch_{tier}", "q1_bytes": b1, "q6_bytes": b6,
+            "budget_bytes": cfg["ballista.tpu.hbm.budget.bytes"],
+            "spills": [{"bytes": b, "spill_s": t} for b, t in spills],
+            "spill_bytes": st1["spill_bytes"] - st0["spill_bytes"],
+            "spill_events": st1["spill_events"] - st0["spill_events"],
+            "reupload_events": st1["reupload_events"] - st0["reupload_events"],
+            "cold_fill_s": r1[0].get("fill_s"), "cold_encode_s": r1[0].get("encode_s"),
+            "reupload_fill_s": r1b[0].get("fill_s"), "q6_plan": r6[0].get("hbm_plan"),
+            "walls_s": {"q1_cold": w1, "q6": w6, "q1_restored": w1b}, "npz_files_after": n_files,
+            "digest_planes": len(before)}
+
+
+def grace_q5_check(data_dir: str, whole_rec: dict, answers: tuple, busy_ok: bool) -> dict:
+    """q5 in auto mode under a budget of its working set (phase 4's
+    admission reason) less 1 byte: a grace split into 4 sub-buckets at depth
+    1, one cold run, best of 3 warm, one traced. Every answer equals phase
+    4's device and engine=cpu answers (strings and ints exact, revenue within
+    rtol 1e-9), every stage on the card, and every run launches hash_probe
+    twice (nation, region) per sub-run."""
+    from ballista_tpu_torch.ops.cuda import cuda_kernels as ck
+
+    ws = _working_set(whole_rec["hbm_plan_reason"])
+    cfg = {**SPILL_CONFIG, "ballista.tpu.hbm.budget.bytes": ws - 1}
+    _fresh_card()
+    dev_tbl, cpu_tbl = answers
+    times, run_launches, recs = [], [], []
+    for i in range(4):  # cold, then best of 3
+        ck.reset_launches()
+        tbl, prs, _stages, wall = _ooc_run(data_dir, 5, cfg)
+        run_launches.append(dict(ck.LAUNCHES))
+        rec = _grace_rec(prs, "q5 grace")
+        if "into 4 sub-buckets (depth 1)" not in rec["hbm_plan_reason"] or \
+                rec.get("grace_splits") != 4:
+            raise AssertionError(f"q5 grace: {rec.get('grace_splits')} sub-runs, "
+                                 f"{rec['hbm_plan_reason']!r}")
+        if run_launches[-1]["hash_probe"] < 2 * rec["grace_splits"]:
+            raise AssertionError(f"q5 grace: hash_probe launched {run_launches[-1]['hash_probe']}"
+                                 f" times over {rec['grace_splits']} sub-runs")
+        compare_answers(tbl, dev_tbl, 5)
+        compare_answers(tbl, cpu_tbl, 5)
+        recs.append(rec)
+        if i:
+            times.append(wall)
+        else:
+            cold_wall = wall
+
+    def one_run():
+        _ooc_run(data_dir, 5, cfg)
+
+    t0 = time.time()
+    ck.reset_launches()
+    by_name: dict = {}
+    busy = device_busy_ms(one_run, by_name=by_name) if busy_ok else None
+    traced_wall = time.time() - t0
+    traced_launches = dict(ck.LAUNCHES)
+    top_ops = sorted(([n[:80], ms, c] for n, (ms, c) in by_name.items()),
+                     key=lambda r: -r[1])[:6]
+    best = min(range(3), key=lambda k: times[k])
+    warm = recs[best + 1]
+    log(f"q5 grace: 4 sub-runs, answers equal to phase 4's and the CPU engine's; cold "
+        f"{cold_wall:.2f}s, warm {times}, hash_probe per run "
+        f"{[r['hash_probe'] for r in run_launches]}")
+    keep = ("fill_s", "build_s", "exec_s", "fused_kernel_s", "grace_splits", "hbm_plan",
+            "hbm_plan_reason", "hbm_budget_bytes", "fusion_mode")
+    return {"query": "q5_grace", "working_set_bytes": ws, "wall_s": times[best], "times_s": times,
+            "cold_wall_s": cold_wall, "cold": {k: recs[0].get(k) for k in keep},
+            "warm": {k: warm.get(k) for k in keep},
+            "kernel_launches_per_run": run_launches, "traced_launches": traced_launches,
+            "launches": {k: sum(r[k] for r in run_launches) + traced_launches[k]
+                         for k in traced_launches},
+            "traced_wall_s": traced_wall, "device_busy_ms": busy, "top_device_ops": top_ops,
+            "device_idle_share": None if busy is None else 1.0 - busy / 1e3 / traced_wall}
+
+
+def grace_depth2_check(data_dir: str) -> dict:
+    """q5 at a budget between fixed + split/16 and fixed + split/4 (fixed and
+    split read from the admission reasons of a whole run and of a run one
+    byte over): 16 sub-buckets at depth 2, each answer equal to the whole
+    run's (floats within rtol 1e-9), hash_probe in every sub-run."""
+    import re
+
+    from ballista_tpu_torch.ops.cuda import cuda_kernels as ck
+
+    _fresh_card()
+    whole, prs, _st, w_whole = _ooc_run(data_dir, 5, SPILL_CONFIG)
+    ws = _working_set(prs[0]["hbm_plan_reason"])
+    out = {"query": "q5_grace_depth2", "working_set_bytes": ws, "whole_wall_s": w_whole}
+    budgets = {4: ws - 1}
+    for n in (4, 16):
+        _fresh_card()
+        ck.reset_launches()
+        tbl, prs, _st, wall = _ooc_run(
+            data_dir, 5, {**SPILL_CONFIG, "ballista.tpu.hbm.budget.bytes": budgets[n]})
+        rec = _grace_rec(prs, f"q5 grace {n}")
+        depth = 1 if n == 4 else 2
+        if f"into {n} sub-buckets (depth {depth})" not in rec["hbm_plan_reason"] or \
+                rec.get("grace_splits") != n or ck.LAUNCHES["hash_probe"] < 2 * n:
+            raise AssertionError(f"q5 grace {n}: {rec.get('grace_splits')} sub-runs, hash_probe "
+                                 f"{ck.LAUNCHES['hash_probe']}, {rec['hbm_plan_reason']!r}")
+        compare_answers(tbl, whole, 5)
+        if n == 4:
+            split = int(re.search(r"grace-splitting build \d+ \((\d+) B\)",
+                                  rec["hbm_plan_reason"]).group(1))
+            fixed = ws - split
+            budgets[16] = fixed + (-(-split // 16) + -(-split // 4)) // 2
+            out.update(split_bytes=split, fixed_bytes=fixed)
+        out[f"grace{n}"] = {"budget_bytes": budgets[n], "cold_wall_s": wall,
+                            "grace_splits": rec["grace_splits"],
+                            "hash_probe": ck.LAUNCHES["hash_probe"],
+                            "exec_s": rec.get("exec_s"), "build_s": rec.get("build_s")}
+    log(f"q5 grace depth 2: 16 sub-runs, equal to the whole run (budget {budgets[16]} B)")
+    return out
+
+
+class _Warnings:
+    """Collect the stage compiler's warnings (the OOM rung's)."""
+
+    def __enter__(self):
+        import logging
+
+        self.records = []
+        self.logger = logging.getLogger("ballista_tpu_torch.ops.cuda.stage_compiler")
+        self.handler = logging.Handler(logging.WARNING)
+        self.handler.emit = lambda r: self.records.append(r.getMessage())
+        self.logger.addHandler(self.handler)
+        return self.records
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def oom_injected_check(data_dir: str, answer, dev) -> dict:
+    """q3 with hbm_oom chaos armed (budget 1 TiB, the first upload raises
+    RESOURCE_EXHAUSTED once): the stage spills, retries once (pre-planned
+    as a grace split) and answers as phase 6 did (floats within rtol 1e-9).
+    Also measures the retry's peak device memory, which sizes the real-OOM
+    check's margin."""
+    from ballista_tpu_torch.ops.cuda import hbm
+
+    _fresh_card()
+    retries0 = hbm.oom_retry_count()
+    hbm.arm_chaos(1 << 40, oom_n=1)
+    try:
+        with _Warnings() as warned:
+            (tbl, prs, _st, wall), peak = _peak_run(data_dir, 3, SPILL_CONFIG, dev)
+    finally:
+        hbm.disarm_chaos()
+    rec = max(prs, key=lambda r: r.get("device_bytes") or 0)
+    if hbm.oom_retry_count() != retries0 + 1 or rec.get("hbm_oom_retries", 0) < 1 or \
+            not any("InjectedResourceExhausted" in w for w in warned):
+        raise AssertionError(f"oom injected: no spill-and-retry ({rec}, {warned})")
+    compare_answers(tbl, answer, 3)
+    log(f"oom injected: q3 retried once ({rec.get('hbm_plan')}, grace_splits "
+        f"{rec.get('grace_splits')}), equal to phase 6; peak {peak} B")
+    return {"query": "oom_injected_q3", "wall_s": wall, "hbm_plan": rec.get("hbm_plan"),
+            "hbm_plan_reason": rec.get("hbm_plan_reason"), "grace_splits": rec.get("grace_splits"),
+            "hbm_oom_retries": rec.get("hbm_oom_retries"), "peak_allocated_bytes": peak,
+            "q3_table_bytes": rec.get("device_bytes")}
+
+
+def _peak_run(data_dir: str, q: int, cfg: dict, dev):
+    """_ooc_run with the device memory it allocated at its peak above what
+    was allocated before it."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = _ooc_run(data_dir, q, cfg)
+    return out, torch.cuda.max_memory_allocated(dev) - base
+
+
+def oom_real_check(data_dir: str, answer, dev, first_need: int, retry_need: int,
+                   q3_bytes: int, q16_bytes: int) -> dict:
+    """A real torch.cuda.OutOfMemoryError: q1's and q6's tables resident (no
+    budget; `q16_bytes` between them), one blocker tensor holds the card's
+    free memory less a margin, and q3 runs. The margin lies between what
+    the retry needs once the residents are spilled (`retry_need`, the
+    injected check's peak, for the retry is pre-planned as a grace split,
+    less the residents) and the whole first attempt's peak (`first_need`,
+    a cold q3 run's): so the first attempt runs out of memory, the spill
+    of the residents makes room, and the retry answers as phase 6 did. The
+    blocker is freed in `finally`."""
+    import torch
+
+    from ballista_tpu_torch.ops.cuda import hbm
+    from ballista_tpu_torch.ops.cuda import stage_compiler as sc
+
+    _ooc_run(data_dir, 1, SPILL_CONFIG)  # both from the cache or the spill pool
+    _ooc_run(data_dir, 6, SPILL_CONFIG)
+    resident = sc.DEVICE_CACHE.resident_bytes()
+    if resident != q16_bytes:
+        raise AssertionError(f"oom real: {resident} B resident, expected q1's and q6's "
+                             f"{q16_bytes} B")
+    lo, hi = retry_need - resident, first_need
+    if hi - lo < 256 << 20:
+        raise AssertionError(f"oom real: no room for a margin: the retry needs {retry_need} B, "
+                             f"the residents hold {resident} B, the first attempt {first_need} B")
+    margin = (max(lo, 0) + hi) // 2
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    log(f"oom real: first attempt needs {first_need} B, the retry {retry_need} B, residents "
+        f"{resident} B, q3's table {q3_bytes} B, free {free} of {total} B: margin {margin} B")
+    spilled0 = hbm.SPILL_POOL.stats()
+    retries0 = hbm.oom_retry_count()
+    blocker = torch.empty(free - margin, dtype=torch.uint8, device=dev)
+    try:
+        with _Warnings() as warned:
+            tbl, prs, _st, wall = _ooc_run(data_dir, 3, SPILL_CONFIG)
+    finally:
+        del blocker
+        torch.cuda.empty_cache()
+    spilled = hbm.SPILL_POOL.stats()
+    rec = max(prs, key=lambda r: r.get("device_bytes") or 0)
+    if hbm.oom_retry_count() != retries0 + 1 or \
+            not any("OutOfMemoryError" in w for w in warned):
+        raise AssertionError(f"oom real: no real out-of-memory retry ({warned})")
+    if spilled["spill_bytes"] - spilled0["spill_bytes"] < resident:
+        raise AssertionError(f"oom real: the rung spilled {spilled}, not the residents")
+    compare_answers(tbl, answer, 3)
+    log(f"oom real: q3 ran out of memory, spilled "
+        f"{spilled['spill_bytes'] - spilled0['spill_bytes']} B and retried "
+        f"({rec.get('hbm_plan')}), equal to phase 6")
+    return {"query": "oom_real_q3", "wall_s": wall, "first_need_bytes": first_need,
+            "retry_need_bytes": retry_need, "margin_bytes": margin, "resident_bytes": resident,
+            "q3_table_bytes": q3_bytes, "free_bytes": free, "total_bytes": total,
+            "spilled_bytes": spilled["spill_bytes"] - spilled0["spill_bytes"],
+            "hbm_plan": rec.get("hbm_plan"), "grace_splits": rec.get("grace_splits"),
+            "hbm_oom_retries": rec.get("hbm_oom_retries"), "warning": warned[:1]}
+
+
+def out_of_core_phase(big_dir: str, q4_dir: str, dev, busy_ok: bool, recs: dict,
+                      answers: dict) -> list[dict]:
+    """Phase 7, the out-of-core rungs: the injected and the real
+    out-of-memory retry on q3, the spill round trip on q1/q6 through the
+    host tier, the grace split of q5 (all at --scale), then grace at depth 2
+    and the disk tier at --q4-scale. Chaos is disarmed, the blocker freed
+    and the caches cleared whatever happens."""
+    from ballista_tpu_torch.ops.cuda import hbm
+
+    out = []
+    try:
+        inj = oom_injected_check(big_dir, answers[3][0], dev)
+        out.append(inj)
+        # the whole first attempt's peak, which with (a)'s sizes the real
+        # OOM's margin
+        _fresh_card()
+        (_t, prs, _s, _w), first_need = _peak_run(big_dir, 3, SPILL_CONFIG, dev)
+        # the host round trip leaves q1's table resident and q6's spilled:
+        # the real OOM check restores q6 beside it
+        out.append(spill_touch_check(
+            big_dir, "host", {q: (answers[q][0], recs[q]["device_bytes"]) for q in (1, 6)}, dev))
+        out.append(oom_real_check(
+            big_dir, answers[3][0], dev, first_need, inj["peak_allocated_bytes"],
+            max(r.get("device_bytes") or 0 for r in prs),
+            recs[1]["device_bytes"] + recs[6]["device_bytes"]))
+        out.append(grace_q5_check(big_dir, recs[5], answers[5], busy_ok))
+        out.append(grace_depth2_check(q4_dir))
+        _fresh_card()
+        small = {}
+        for q in (1, 6):
+            tbl, prs, _st, _w = _ooc_run(q4_dir, q, QUERY_CONFIG)
+            small[q] = (tbl, prs[0]["device_bytes"])
+        out.append(spill_touch_check(q4_dir, "disk", small, dev))
+    finally:
+        hbm.disarm_chaos()
+        _fresh_card()
+    return out
+
+
 def _tag(stage) -> str:
     import zlib
 
@@ -1196,11 +1643,12 @@ def main(argv=None) -> int:
         # the main paths: the counts are set to 0 just before each query
         # and read just after it
         launches = {}
+        recs, answers = {}, {}  # phase 7 reads phases 4 and 6
         for q, path_dir, scale in ((1, big_dir, args.scale), (6, big_dir, args.scale),
                                    (5, big_dir, args.scale), (12, big_dir, args.scale),
                                    (4, q4_dir, args.q4_scale)):
             cuda_kernels.reset_launches()
-            r = run_query(q, path_dir, dev, busy_ok)
+            r = recs[q] = run_query(q, path_dir, dev, busy_ok, answers)
             r["launches"] = launches[q] = dict(cuda_kernels.LAUNCHES)
             r["scale"] = scale
             r["card"] = card
@@ -1223,7 +1671,7 @@ def main(argv=None) -> int:
             path_dir, scale = ((big_dir, args.scale) if which == "big"
                                else (q4_dir, args.q4_scale))
             cuda_kernels.reset_launches()
-            r = run_sorted_query(q, path_dir, dev, busy_ok, extra)
+            r = run_sorted_query(q, path_dir, dev, busy_ok, extra, answers)
             r["launches"] = launches[q] = dict(cuda_kernels.LAUNCHES)
             r["scale"] = scale
             r["card"] = card
@@ -1235,7 +1683,19 @@ def main(argv=None) -> int:
             r["card"] = card
             print(json.dumps(r), flush=True)
             log(f"{r['query']} done at {time.time() - t0:.1f}s")
-        path_of = {"masked_group_reduce": (4,), "hash_probe": (5, 21), "dict_filter": (12,),
+        # out of core: the launch counts of the grace q5 runs are set to 0
+        # just before each run and read just after it
+        t7 = time.time()
+        for r in out_of_core_phase(big_dir, q4_dir, dev, busy_ok, recs, answers):
+            if r["query"] == "q5_grace":
+                launches["q5_grace"] = r["launches"]
+            r["scale"] = args.q4_scale if r["query"] in (
+                "q5_grace_depth2", "spill_touch_disk") else args.scale
+            r["card"] = card
+            print(json.dumps(r), flush=True)
+        log(f"out-of-core phase took {time.time() - t7:.1f}s, done at {time.time() - t0:.1f}s")
+        path_of = {"masked_group_reduce": (4,), "hash_probe": (5, 21, "q5_grace"),
+                   "dict_filter": (12,),
                    "segmented_sort": ("win_orders", "sort_customer"),
                    "topk_select": ("topk_partsupp",), "segmented_scan": ("win_orders",)}
         for krec in krecs:
