@@ -18,11 +18,16 @@ their C interfaces.
   every group: ROADMAP C4).
 - `hash_probe` (:185): the direct-mode join probe, rows = table[keys]
   fused with the probe mask. Bound: bytes, P*N*(4 + 1) read, P*N*(4 + 1)
-  written, the [T] table read once.
+  written, the [T] table read once. The table sits in shared memory as
+  far as it fits, in a regime chosen from T
+  (`hash_probe_regime`): every block holds all of it (up to the default
+  48 KB, or the opt-in 227 KB) or its first 227 KB, or a cluster of two
+  CTAs holds twice that, reading each other's halves through distributed
+  shared memory; what no block holds is read through L2.
 - `dict_filter` (:467): a string predicate over dictionary codes,
   keep = mask & lut[codes]. Bound: bytes, P*N*(4 + 1) read, P*N written.
-  Both gathers stage a small table (up to 48 KB) into shared memory once
-  per block and read a larger one through the read-only cache.
+  It stages a small LUT (up to 48 KB) into shared memory once per block
+  and reads a larger one through the read-only cache.
 - `segmented_sort` (:284): a per-row ascending sort of [P, N] triples
   (i64 a, i64 b, i32 pos), N a power of two. Bound: bytes, P*N*20 read
   and written; one row of 2^20 lanes is 20 MB, far beyond one block's
@@ -65,6 +70,9 @@ MAX_SORT_LANES = 1 << 20  # absolute ceiling of the sort family; the cost model 
 
 LAUNCHES = {"masked_group_reduce": 0, "hash_probe": 0, "dict_filter": 0,
             "segmented_sort": 0, "topk_select": 0, "segmented_scan": 0}
+# hash_probe's launches by (P, N, T, regime, cluster size): which regime
+# served which table on a path
+HASH_PROBE_LAUNCHES: dict = {}
 _count_lock = threading.Lock()
 
 
@@ -81,11 +89,14 @@ def reset_launches() -> None:
     with _count_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+        HASH_PROBE_LAUNCHES.clear()
 
 
-def _count(name: str) -> None:
+def _count(name: str, shape: tuple | None = None) -> None:
     with _count_lock:
         LAUNCHES[name] += 1
+        if shape is not None:
+            HASH_PROBE_LAUNCHES[shape] = HASH_PROBE_LAUNCHES.get(shape, 0) + 1
 
 
 def masked_group_reduce_plain(vals, gid, mask, num_groups: int):
@@ -109,6 +120,7 @@ def masked_group_reduce_plain(vals, gid, mask, num_groups: int):
 _fns: dict = {}
 _lib_lock = threading.Lock()
 _VP = ctypes.c_void_p
+_INT_P = ctypes.POINTER(ctypes.c_int)
 
 
 def _bind(name: str, fn: str, argtypes: list):
@@ -243,6 +255,94 @@ def _check_gather_args(name: str, idx, table, mask) -> None:
         raise ValueError(f"{name}: table length {table.shape[0]} out of range")
 
 
+HP_SHARED_MAX = 12288  # entries of the shared regime: 48 KB, the default limit (hp_smem_max_entries())
+HP_CLUSTER = 2  # CTAs of a cluster launch (hash_probe.cu kCluster): the two SMs of a TPC
+# the split regime's ceiling, in quarters of S: past it the cluster regime
+# is faster (the crossover measured on an H100 by
+# testing/hash_probe_crossover.py, PERF.md)
+HP_SPLIT_MAX_QUARTERS = 9
+_HP_REGIMES = ("shared", "block", "split", "cluster", "global")  # hash_probe.cu's Regime
+
+
+def hash_probe_block_max(smem_optin_bytes: int) -> int:
+    """S: the most table entries one block stages, its opt-in shared
+    memory in whole 32-byte granules (the kernel keeps nothing else there)."""
+    return smem_optin_bytes // 32 * 8
+
+
+def hash_probe_regime(T: int, smem_optin_bytes: int) -> tuple[str, int]:
+    """Where `hash_probe` keeps a table of T entries, from T alone: (regime,
+    cluster size). "shared": T <= 12288 (48 KB), every block stages it;
+    "block": T <= S (one block's opt-in shared memory), every block of a
+    persistent grid stages it; "split": T <= 9/4 S, every block stages
+    the first S entries and reads the rest through L2; "cluster": T <= 8 S,
+    pairs of CTAs stage S entries each and read the rest through L2;
+    "global": larger, all read through L2."""
+    s = hash_probe_block_max(smem_optin_bytes)
+    if T <= HP_SHARED_MAX:
+        return "shared", 1
+    if T <= s:
+        return "block", 1
+    if T <= s * HP_SPLIT_MAX_QUARTERS // 4:
+        return "split", 1
+    if T <= 8 * s:
+        return "cluster", HP_CLUSTER
+    return "global", 1
+
+
+@functools.cache
+def _hp_lib():
+    """(hp_launch, hp_prepare, hp_max_ctas, hp_smem_optin), bound once."""
+    return (_bind("hash_probe", "hp_launch",
+                  [_VP, _VP, _VP, ctypes.c_int, _VP, _VP, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, _VP]),
+            _bind("hash_probe", "hp_prepare", [ctypes.c_int] * 2),
+            _bind("hash_probe", "hp_max_ctas", [ctypes.c_int] * 3 + [_INT_P]),
+            _bind("hash_probe", "hp_smem_optin", [ctypes.c_int, _INT_P]))
+
+
+def _hp_query(name: str, fn, *args) -> int:
+    out = ctypes.c_int(0)
+    rc = fn(*args, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"hash_probe: {name} failed: CUDA error {rc}")
+    return out.value
+
+
+_HP_OPTIN: dict = {}
+_HP_PREPARED: set = set()
+_HP_CTAS: dict = {}
+
+
+def hash_probe_smem_optin(dev) -> int:
+    """The opt-in shared memory of one block on card `dev`, in bytes."""
+    n = _HP_OPTIN.get(dev.index)
+    if n is None:
+        n = _HP_OPTIN[dev.index] = _hp_query("hp_smem_optin", _hp_lib()[3], dev.index)
+    return n
+
+
+def _hp_cap(dev, T: int, regime: str, optin: int) -> int:
+    """The most blocks a launch takes: 8 an SM in the shared and global
+    regimes (the first kernel's grid); in the staged regimes (block, split,
+    cluster) the persistent grid, every CTA the card holds at once (its
+    occupancy at the CTA's shared memory; a cluster it cannot schedule
+    raises). The staged kernel is readied for its shared memory once per
+    card, the grid sized once per table; `dev` is current."""
+    if regime in ("shared", "global"):
+        return _num_sms(dev) * 8
+    n = _HP_CTAS.get((dev.index, T, regime))
+    if n is None:
+        lib, r = _hp_lib(), _HP_REGIMES.index(regime)
+        if (dev.index, regime) not in _HP_PREPARED:
+            rc = lib[1](r, optin)
+            if rc != 0:
+                raise RuntimeError(f"hash_probe: hp_prepare failed: CUDA error {rc}")
+            _HP_PREPARED.add((dev.index, regime))
+        n = _HP_CTAS[(dev.index, T, regime)] = _hp_query("hp_max_ctas", lib[2], T, r, optin)
+    return n
+
+
 def hash_probe(keys, table, mask):
     """Direct-mode join probe: rows = table[keys], fused with the probe
     predicate mask.
@@ -250,7 +350,7 @@ def hash_probe(keys, table, mask):
     keys: int [P, N], pre-clamped into [0, T); table: i32 [T] (key → build
     row, -1 absent); mask: bool [P, N] (in-range AND probe-key-valid).
     Returns (rows i32 [P, N] — 0 where unmatched — and matched bool
-    [P, N]).
+    [P, N]). The regime comes from T (`hash_probe_regime`).
     """
     if keys.device.type == "cpu":
         return hash_probe_plain(keys, table, mask)
@@ -258,21 +358,22 @@ def hash_probe(keys, table, mask):
     dev = keys.device
     k = _aligned(keys.to(torch.int32), 16)
     m = _aligned(mask.to(torch.bool), 4)
-    tab = table.to(torch.int32).contiguous()
+    tab = _aligned(table.to(torch.int32), 16)  # the staging's 16-byte loads
     rows = torch.empty(k.shape, dtype=torch.int32, device=dev)
     matched = torch.empty(k.shape, dtype=torch.bool, device=dev)
     if k.numel() == 0:  # nothing to probe, nothing launched
         return rows, matched
-    launch = _bind("hash_probe", "hp_launch",
-                   [_VP, _VP, _VP, ctypes.c_int, _VP, _VP, ctypes.c_longlong,
-                    ctypes.c_int, _VP])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(k.data_ptr(), m.data_ptr(), tab.data_ptr(), int(tab.shape[0]),
-                    rows.data_ptr(), matched.data_ptr(), k.numel(), _num_sms(dev), stream)
+    T = int(tab.shape[0])
+    with _on(dev):
+        optin = hash_probe_smem_optin(dev)
+        regime, cluster = hash_probe_regime(T, optin)
+        cap = _hp_cap(dev, T, regime, optin)
+        rc = _hp_lib()[0](k.data_ptr(), m.data_ptr(), tab.data_ptr(), T, rows.data_ptr(),
+                          matched.data_ptr(), k.numel(), _HP_REGIMES.index(regime), optin, cap,
+                          torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise _launch_error("hash_probe", rc)
-    _count("hash_probe")
+    _count("hash_probe", (*k.shape, T, regime, cluster))
     return rows, matched
 
 
@@ -306,8 +407,10 @@ def dict_filter(codes, lut, mask):
 
 
 def smem_max_entries(name: str) -> int:
-    """Largest table (entries) the kernel stages into shared memory; larger
-    ones are read through the read-only cache."""
+    """Largest table (entries) every block of the kernel stages within the
+    default 48 KB of shared memory: dict_filter reads a larger LUT through
+    the read-only cache; hash_probe stages a larger one with the opt-in
+    limit (hash_probe_regime)."""
     fn = {"hash_probe": "hp_smem_max_entries", "dict_filter": "df_smem_max_entries"}[name]
     return int(_bind(name, fn, [])())
 

@@ -2292,9 +2292,11 @@ def _mk_join_finder(off: int, probe_fns, bt: BuildTable, cell: dict, memo: dict,
     reference's clamps and match rules.
 
     `pallas=True` (unique keys only) routes the lookup through the
-    hand-written `hash_probe` kernel: table in shared memory, gather and
-    match mask fused. Every build-column gather closure re-invokes the
-    finder, so the result is memoized per stage run and lane, keyed by the
+    hand-written `hash_probe` kernel, gather and match mask fused, with
+    the table in shared memory up to the engine's cap
+    (`cuda_kernels.hash_probe_regime` picks where it sits). Every
+    build-column gather closure re-invokes the finder, so the result is
+    memoized per stage run and lane, keyed by the
     identity of the run's `cols` list and `d`: one lookup (one kernel
     launch) per join per lane."""
     shifts = bt.shifts

@@ -12,13 +12,19 @@ shapes, `segmented_sort` at [1, 2^20] and [1, 2^18], `segmented_scan`
 `topk_select` at [1, 2^20], k=100, on the top-k stage's operands (a zero,
 b a key in [0, 100000), 1,000,000 real rows) and on descending keys, and
 `masked_group_reduce` at q4's [8, 262144] with G=8 and G=4096 (70% of
-rows kept): CUDA-event ms per call over 50 calls through the wrapper,
+rows kept), and `hash_probe` at [8, 2^23] over tables of T = 32 (q5's
+nation), 2^14 and 2^17 (q21's supplier at SF1 and SF10) and 2^18 (the
+engine's cap; 70% of slots present), keys in [0, T), 90% of the mask
+set: CUDA-event ms per call over 50 calls through the wrapper,
 device ms per call from a torch.profiler trace of 20 calls (the union of
 the device events, memsets included) and the host's ms per call to
-enqueue 200 calls. The same for the library yardsticks `torch.topk` and
-`torch.bincount` on the same inputs, under "library". Prints one JSON
-line per checkout, after the card's name and power limit. Needs a CUDA
-card; exits non-zero without one.
+enqueue 200 calls. The same for the library yardsticks `torch.topk`,
+`torch.bincount` and `torch.take` on the same inputs, under "library".
+Where the checkout has hash_probe's regimes, each hash_probe
+entry names the regime T chose, and the tables on both sides of the
+split/cluster boundary (T = 9/4 S and one more) are timed too. Prints one
+JSON line per checkout, after the card's name and power limit. Needs a
+CUDA card; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -128,6 +134,31 @@ for G in (8, 4096):
     w = torch.where(mask, vals, 0.0).flatten()
     lib[f"torch.bincount [{P}, {n}] G={G}"] = times(
         lambda: torch.bincount(key, w, minlength=P * G))
+P, n = 8, 1 << 23
+hp_rng = np.random.default_rng(11)
+regimes = hasattr(ck, "hash_probe_regime")
+optin = ck.hash_probe_smem_optin(dev) if regimes else None
+tables = [(32, 25 / 32), (1 << 14, 10000 / (1 << 14)), (1 << 17, 100000 / (1 << 17)),
+          (1 << 18, 0.7)]
+if regimes:  # the split/cluster boundary
+    cut = ck.hash_probe_block_max(optin) * ck.HP_SPLIT_MAX_QUARTERS // 4
+    tables += [(cut, 0.7), (cut + 1, 0.7)]
+for T, present in tables:
+    table_np = np.full(T, -1, np.int32)
+    slots = hp_rng.choice(T, size=int(T * present), replace=False)
+    table_np[slots] = hp_rng.permutation(len(slots)).astype(np.int32)
+    table = torch.as_tensor(table_np, device=dev)
+    keys = torch.as_tensor(hp_rng.integers(0, T, (P, n), dtype=np.int32), device=dev)
+    mask = torch.as_tensor(hp_rng.random((P, n), dtype=np.float32) < 0.9, device=dev)
+    got, want = ck.hash_probe(keys, table, mask), ck.hash_probe_plain(keys, table, mask)
+    assert all(torch.equal(a, b) for a, b in zip(got, want)), T
+    name = f"hash_probe [{P}, {n}] T={T}"
+    out[name] = times(lambda: ck.hash_probe(keys, table, mask))
+    if regimes:
+        out[name]["regime"] = ck.hash_probe_regime(T, optin)
+    keys_l = keys.long()
+    lib[f"torch.take [{P}, {n}] T={T}"] = times(lambda: torch.take(table, keys_l))
+    del keys, keys_l, mask, got, want
 print(json.dumps(out), flush=True)
 '''
 

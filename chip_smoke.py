@@ -16,10 +16,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    within rtol 1e-4 / atol 1e-4, the JAX package's own kernel bound, NaN
    exactly where the plain form has it; timed at G=8 and G=4096, library
    call torch.bincount); hash_probe at q5's
-   P=8, N=8388608, T=32 (table in shared memory) and T=1<<18 with 30%
-   absent keys (table read through the read-only cache) and at q21's
-   supplier join at SF10 (T=1<<17, 100,000 keys present), exact (library
-   call torch.take); dict_filter at q12's P=8, N=2097152, T=8, and T=4096
+   P=8, N=8388608, T=32, at q21's supplier join at SF1 (its stage's
+   [8, 2^20], T=2^14, 10,000 keys present) and at SF10 (T=2^17, 100,000
+   keys), at T=2^18 with 30% absent keys (the engine's cap), and on both
+   sides of every regime boundary (T = 12288, S, 9/4 S and 8S, S one
+   block's opt-in shared memory in entries), each in the regime
+   hash_probe_regime picks, exact (library call torch.take); dict_filter
+   at q12's P=8, N=2097152, T=8, and T=4096
    and T=1<<17 (the global-LUT regime), exact (library call torch.take);
    segmented_sort at the window shape [1, 2^20], at [1, 2^18] and
    [4, 4096], with ties and padding sentinels, and at the edges (rows
@@ -79,6 +82,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    under a hand-built hash ShuffleWriterExec of 16 partitions, every
    written row hashing on the host (ops/hashing) to its own partition and
    the rows together equal to the engine=cpu answer (both at --q4-scale);
+   then q21 at --scale under fused_pallas, cold and best of 3 warm, its
+   answer equal to fused_xla's on the card exactly (rows and order), its
+   supplier probe (T=2^17 at SF10) launching hash_probe in the regime
+   hash_probe_regime picks in every run, with the (P, N, T, regime, C) of
+   each launch recorded;
    phases 4-6 run with the host spill pool off, so an evicted table is
    dropped as before the pool existed;
 7. out of core, with the spill pool on: (a) q3 with hbm_oom chaos armed
@@ -292,8 +300,8 @@ def _kernel_launches(rec: dict) -> float | None:
 def gather_phase(dev, busy_ok: bool) -> list[dict]:
     """hash_probe and dict_filter against their plain forms: exact, reruns
     bitwise identical, at the main path's shapes and at large tables.
-    Returns one record per kernel (main-path shape, with the large-table
-    timing under "large")."""
+    Returns one record per kernel at its main-path shape, with hash_probe's
+    other tables under "tables" and dict_filter's large LUT under "large"."""
     import numpy as np
     import torch
 
@@ -301,14 +309,26 @@ def gather_phase(dev, busy_ok: bool) -> list[dict]:
 
     rng = np.random.default_rng(11)
     records = []
-    smem = {k: ck.smem_max_entries(k) for k in ("hash_probe", "dict_filter")}
-    # (P, N, T, share of table slots present): q5's nation join, the
-    # largest table the engine sends the kernel (pallas.max.probe.rows)
-    # with 30% of its keys absent, and q21's supplier join at SF10 (100,000
-    # suppliers in 2^17 slots)
+    optin = ck.hash_probe_smem_optin(dev)
+    s_max = ck.hash_probe_block_max(optin)
+    cut = s_max * ck.HP_SPLIT_MAX_QUARTERS // 4  # the split/cluster boundary
+    log(f"hash_probe: opt-in shared memory {optin} B a block, S = {s_max} entries")
+    # (label, P, N, T, share of table slots present): q5's nation join;
+    # q21's supplier join at SF1 (its stage's [8, 2^20] lineitem stack,
+    # 10,000 suppliers in 2^14 slots), the same table at [8, 2^23], and at
+    # SF10 (100,000 suppliers in 2^17 slots); the largest table the engine
+    # sends the kernel (pallas.max.probe.rows) with 30% of its keys absent;
+    # and a table on each side of every regime boundary
+    cases = [("q5_nation", 8, 8388608, 32, 25 / 32),
+             ("q21_supplier_sf1", 8, 1048576, 1 << 14, 10000 / (1 << 14)),
+             ("T=2^14", 8, 8388608, 1 << 14, 10000 / (1 << 14)),
+             ("q21_supplier_sf10", 8, 8388608, 1 << 17, 100000 / (1 << 17)),
+             ("engine_cap", 8, 8388608, 1 << 18, 0.7)]
+    cases += [(f"edge {label}", 8, 8388608, T, 0.7) for label, T in (
+        ("12288", 12288), ("12289", 12289), ("S", s_max), ("S+1", s_max + 1),
+        ("9S/4", cut), ("9S/4+1", cut + 1), ("8S", 8 * s_max), ("8S+1", 8 * s_max + 1))]
     hp = {}
-    for P, N, T, present in ((8, 8388608, 32, 25 / 32), (8, 8388608, 1 << 18, 0.7),
-                             (8, 8388608, 1 << 17, 100000 / (1 << 17))):
+    for label, P, N, T, present in cases:
         table_np = np.full(T, -1, np.int32)
         slots = rng.choice(T, size=int(T * present), replace=False)
         table_np[slots] = rng.permutation(len(slots)).astype(np.int32)
@@ -320,11 +340,12 @@ def gather_phase(dev, busy_ok: bool) -> list[dict]:
         rp, mp = ck.hash_probe_plain(keys, table, mask)
         torch.cuda.synchronize()
         if not (torch.equal(r1, r2) and torch.equal(m1, m2)):
-            raise AssertionError(f"hash_probe T={T}: two runs differ bitwise")
+            raise AssertionError(f"hash_probe {label} T={T}: two runs differ bitwise")
         if not (torch.equal(r1, rp) and torch.equal(m1, mp)):
-            raise AssertionError(f"hash_probe T={T}: differs from the plain form")
-        regime = "shared" if T <= smem["hash_probe"] else "global"
-        log(f"hash_probe P={P} N={N} T={T} ({regime} table): exact, reruns bitwise identical")
+            raise AssertionError(f"hash_probe {label} T={T}: differs from the plain form")
+        regime, cluster = ck.hash_probe_regime(T, optin)
+        log(f"hash_probe {label} P={P} N={N} T={T} ({regime} regime, C={cluster}): exact, "
+            "reruns bitwise identical")
         keys_l = keys.long()
         rec = _timings(lambda: ck.hash_probe(keys, table, mask),
                        lambda: ck.hash_probe_plain(keys, table, mask),
@@ -332,12 +353,15 @@ def gather_phase(dev, busy_ok: bool) -> list[dict]:
         # keys (4 B) and mask (1 B) read, rows (4 B) and matched (1 B)
         # written per row, the table read once; a compare and a select per row
         rec["bound_ms"], rec["bound_by"] = _bound(P * N * 10 + T * 4, 2 * P * N)
-        rec.update(shape=[P, N, T], table=regime)
-        hp[T] = rec
+        rec.update(label=label, shape=[P, N, T], regime=regime, cluster=cluster,
+                   present=len(slots))
+        log(f"hash_probe {label}: {rec['ms']:.4f} ms (device {rec['device_ms']}), bound "
+            f"{rec['bound_ms']:.4f} ms, torch.take {rec['library_ms']:.4f} ms (device "
+            f"{rec['library_device_ms']})")
+        hp[label] = rec
         del keys, keys_l, mask, r1, r2, rp, m1, m2, mp
-    main = hp[32]
-    main["large"] = hp[1 << 18]
-    main["q21_supplier"] = hp[1 << 17]
+    main = hp.pop("q5_nation")
+    main["tables"] = list(hp.values())
     records.append({"name": "hash_probe", "route": "cuda",
                     "source": "ballista_tpu_torch/ops/cuda/csrc/hash_probe.cu",
                     "replaces": "ballista_tpu/ops/tpu/pallas_kernels.py:185",
@@ -356,7 +380,7 @@ def gather_phase(dev, busy_ok: bool) -> list[dict]:
             raise AssertionError(f"dict_filter T={T}: two runs differ bitwise")
         if not torch.equal(k1, kp):
             raise AssertionError(f"dict_filter T={T}: differs from the plain form")
-        regime = "shared" if T <= smem["dict_filter"] else "global"
+        regime = "shared" if T <= ck.smem_max_entries("dict_filter") else "global"
         log(f"dict_filter P={P} N={N} T={T} ({regime} LUT): exact, reruns bitwise identical")
         if T == 4096:
             continue
@@ -1061,6 +1085,104 @@ def run_sorted_query(q: int, data_dir: str, dev, busy_ok: bool, extra_cfg: dict,
     }
 
 
+def q21_large_check(data_dir: str, scale: float, dev, busy_ok: bool) -> dict:
+    """q21 at --scale (SF10: 100,000 suppliers, a 2^17-entry supplier
+    table) under ballista.tpu.fusion.mode=fused_pallas, against the same
+    query under fused_xla on the card, whose probes are plain gathers: the
+    engine=cpu answer takes about 170 s at SF10, and q21's answer is counts
+    and names, so the two must be equal exactly, rows and order. The
+    fused_xla reference runs first, both with a device collect budget of
+    2^26 build rows; then the launch counts are set to 0
+    and fused_pallas runs cold, three times warm (best of 3) and once
+    traced, each answer checked, every device stage on the card with no
+    fallback, and the supplier probe launching hash_probe with its table in
+    the regime hash_probe_regime picks for it, in every run."""
+    from ballista_tpu_torch.client.context import SessionContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.engine.cuda_engine import maybe_compile_tpu
+    from ballista_tpu_torch.ops.cuda import cuda_kernels as ck
+    from ballista_tpu_torch.ops.cuda.final_stage import TpuFinalStageExec
+    from ballista_tpu_torch.ops.cuda.stage_compiler import RUN_STATS, TpuStageExec
+    from ballista_tpu_torch.testing.tpchgen import register_tpch
+
+    with open(os.path.join(ROOT, "benchmarks", "tpch", "queries", "q21.sql")) as f:
+        sql = f.read()
+
+    def session(mode: str):
+        # the semi and anti subqueries build over lineitem with a join
+        # filter (60M rows at SF10): past the default collect budget of
+        # 16M rows they become partitioned joins, which no device stage
+        # claims; at 2^26 rows they collect, as they do at SF1
+        ctx = SessionContext(BallistaConfig({**QUERY_CONFIG, "ballista.tpu.fusion.mode": mode,
+                                             "ballista.tpu.broadcast.join.threshold.rows": 1 << 26}))
+        register_tpch(ctx, data_dir)
+        return ctx
+
+    def run(ctx):
+        t0 = time.time()
+        physical = maybe_compile_tpu(ctx.create_physical_plan(ctx.sql(sql).plan), ctx.config)
+        tbl = ctx.execute_collect(physical)
+        wall = time.time() - t0
+        stages = [n for n in _walk(physical) if isinstance(n, (TpuStageExec, TpuFinalStageExec))]
+        partial = [st for st in stages if isinstance(st, TpuStageExec)]
+        if not partial:
+            raise AssertionError("q21 large: no device partial stage was planned")
+        for st in stages:
+            if st.tpu_count < 1 or st.fallback_count != 0:
+                raise AssertionError(f"q21 large: {st.node_str()} did not run on the card "
+                                     f"(device_runs={st.tpu_count}, "
+                                     f"fallbacks={st.fallback_count})")
+        recs = RUN_STATS.stages()
+        return tbl, wall, [dict(recs.get(_tag(st), {})) for st in partial]
+
+    ref, ref_wall, _ = run(session("fused_xla"))
+    ctx = session("fused_pallas")
+    T = 1 << int(10000 * scale).bit_length()  # the direct table over s_suppkey 1..10000 SF
+    want = ck.hash_probe_regime(T, ck.hash_probe_smem_optin(dev))
+    ck.reset_launches()
+    walls, run_probes, stage_recs = [], [], []
+    for i in range(4):  # cold, then best of 3
+        before = dict(ck.HASH_PROBE_LAUNCHES)
+        tbl, wall, recs = run(ctx)
+        probes = {k: v - before.get(k, 0) for k, v in ck.HASH_PROBE_LAUNCHES.items()
+                  if v != before.get(k, 0)}
+        if not tbl.equals(ref):
+            raise AssertionError(f"q21 large: run {i} under fused_pallas differs from fused_xla")
+        if not any(k[2] == T and k[3:] == want for k in probes):
+            raise AssertionError(f"q21 large: no hash_probe launch at T={T} in the {want} "
+                                 f"regime in run {i}: {probes}")
+        walls.append(wall)
+        run_probes.append([[*k, v] for k, v in sorted(probes.items())])
+        stage_recs.append(recs)
+    best = min(range(1, 4), key=lambda k: walls[k])
+
+    def one_run():
+        run(ctx)
+
+    t0 = time.time()
+    by_name: dict = {}
+    busy = device_busy_ms(one_run, by_name=by_name) if busy_ok else None
+    traced_wall = time.time() - t0
+    launches = dict(ck.LAUNCHES)
+    top_ops = sorted(([n[:80], ms, c] for n, (ms, c) in by_name.items()),
+                     key=lambda r: -r[1])[:6]
+    keep = ("n_seg", "seg_capacity", "live_rows", "sort_s", "fused_kernel_s", "exec_s",
+            "build_s", "build_modes", "fusion_mode", "fusion_reason", "device_bytes")
+    log(f"q21 large: fused_pallas equal to fused_xla in every run (rows {ref.num_rows}), "
+        f"cold {walls[0]:.2f}s, warm {walls[1:]}, hash_probe launches (P, N, T, regime, C, "
+        f"count) per run {run_probes}")
+    return {
+        "query": "q21_large", "supplier_table": T, "wall_s": walls[best], "times_s": walls[1:],
+        "cold_wall_s": walls[0], "fused_xla_cold_wall_s": ref_wall, "rows_out": ref.num_rows,
+        "hash_probe_per_run": run_probes, "supplier_regime": list(want),
+        "stages": [{k: r.get(k) for k in keep} for r in stage_recs[best]],
+        "cold_stages": [{k: r.get(k) for k in keep} for r in stage_recs[0]],
+        "traced_wall_s": traced_wall, "device_busy_ms": busy, "top_device_ops": top_ops,
+        "device_idle_share": None if busy is None else 1.0 - busy / 1e3 / traced_wall,
+        "launches": launches,
+    }
+
+
 def staged_check(data_dir: str) -> dict:
     """q1 under ballista.tpu.fusion.mode=staged on the card: byte-identical
     to the same query under fused_xla, with the per-span split recorded."""
@@ -1581,6 +1703,14 @@ def out_of_core_phase(big_dir: str, q4_dir: str, dev, busy_ok: bool, recs: dict,
     return out
 
 
+def _probe_launches() -> list:
+    """hash_probe's launches since the counts were last set to 0, as
+    [P, N, T, regime, cluster size, launches] rows."""
+    from ballista_tpu_torch.ops.cuda import cuda_kernels as ck
+
+    return [[*k, v] for k, v in sorted(ck.HASH_PROBE_LAUNCHES.items())]
+
+
 def _tag(stage) -> str:
     import zlib
 
@@ -1644,16 +1774,32 @@ def main(argv=None) -> int:
         # and read just after it
         launches = {}
         recs, answers = {}, {}  # phase 7 reads phases 4 and 6
-        for q, path_dir, scale in ((1, big_dir, args.scale), (6, big_dir, args.scale),
-                                   (5, big_dir, args.scale), (12, big_dir, args.scale),
-                                   (4, q4_dir, args.q4_scale)):
-            cuda_kernels.reset_launches()
-            r = recs[q] = run_query(q, path_dir, dev, busy_ok, answers)
-            r["launches"] = launches[q] = dict(cuda_kernels.LAUNCHES)
+
+        def emit(r: dict, scale: float) -> None:
             r["scale"] = scale
             r["card"] = card
             print(json.dumps(r), flush=True)
+
+        def path_query(q: int, path_dir: str, scale: float) -> None:
+            cuda_kernels.reset_launches()
+            r = recs[q] = run_query(q, path_dir, dev, busy_ok, answers)
+            r["launches"] = launches[q] = dict(cuda_kernels.LAUNCHES)
+            r["hash_probe_launches"] = _probe_launches()
+            emit(r, scale)
             log(f"q{q} done at {time.time() - t0:.1f}s")
+
+        def sorted_query(q: int, path_dir: str, scale: float, extra: dict) -> None:
+            cuda_kernels.reset_launches()
+            r = run_sorted_query(q, path_dir, dev, busy_ok, extra, answers)
+            r["launches"] = launches[q] = dict(cuda_kernels.LAUNCHES)
+            r["hash_probe_launches"] = _probe_launches()
+            emit(r, scale)
+            log(f"q{q} (sorted) done at {time.time() - t0:.1f}s")
+
+        for q, path_dir, scale in ((1, big_dir, args.scale), (6, big_dir, args.scale),
+                                   (5, big_dir, args.scale), (12, big_dir, args.scale),
+                                   (4, q4_dir, args.q4_scale)):
+            path_query(q, path_dir, scale)
         # the sort family, same data; counts set to 0 just before each run
         for name in SORT_QUERIES:
             cuda_kernels.reset_launches()
@@ -1662,27 +1808,24 @@ def main(argv=None) -> int:
             r["launches"] = launches[name] = {
                 k: sum(run[k] for run in r["kernel_launches_per_run"]) + r["traced_launches"][k]
                 for k in cuda_kernels.LAUNCHES}
-            r["scale"] = args.scale
-            r["card"] = card
-            print(json.dumps(r), flush=True)
+            emit(r, args.scale)
             log(f"{name} done at {time.time() - t0:.1f}s")
         # the sorted aggregation, then the staged mode and device routing
         for q, (which, extra) in SORTED_QUERIES.items():
             path_dir, scale = ((big_dir, args.scale) if which == "big"
                                else (q4_dir, args.q4_scale))
-            cuda_kernels.reset_launches()
-            r = run_sorted_query(q, path_dir, dev, busy_ok, extra, answers)
-            r["launches"] = launches[q] = dict(cuda_kernels.LAUNCHES)
-            r["scale"] = scale
-            r["card"] = card
-            print(json.dumps(r), flush=True)
-            log(f"q{q} (sorted) done at {time.time() - t0:.1f}s")
+            sorted_query(q, path_dir, scale, extra)
         for check in (staged_check, routing_check):
             r = check(q4_dir)
-            r["scale"] = args.q4_scale
-            r["card"] = card
-            print(json.dumps(r), flush=True)
+            emit(r, args.q4_scale)
             log(f"{r['query']} done at {time.time() - t0:.1f}s")
+        # q21 at --scale: its supplier table (2^17 entries at SF10) through
+        # hash_probe's shared-memory regimes; the counts are set to 0 inside,
+        # just before its fused_pallas runs, and read just after them
+        r = q21_large_check(big_dir, args.scale, dev, busy_ok)
+        launches["q21_large"] = r["launches"]
+        emit(r, args.scale)
+        log(f"q21 at SF{scale_s} done at {time.time() - t0:.1f}s")
         # out of core: the launch counts of the grace q5 runs are set to 0
         # just before each run and read just after it
         t7 = time.time()
@@ -1694,7 +1837,7 @@ def main(argv=None) -> int:
             r["card"] = card
             print(json.dumps(r), flush=True)
         log(f"out-of-core phase took {time.time() - t7:.1f}s, done at {time.time() - t0:.1f}s")
-        path_of = {"masked_group_reduce": (4,), "hash_probe": (5, 21, "q5_grace"),
+        path_of = {"masked_group_reduce": (4,), "hash_probe": (5, 21, "q21_large", "q5_grace"),
                    "dict_filter": (12,),
                    "segmented_sort": ("win_orders", "sort_customer"),
                    "topk_select": ("topk_partsupp",), "segmented_scan": ("win_orders",)}

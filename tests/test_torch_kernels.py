@@ -209,9 +209,12 @@ def _probe_both(keys, table, mask):
     return np.asarray(jr), np.asarray(jm), tr.numpy(), tm.numpy()
 
 
-@pytest.mark.parametrize("T", [1, 4, 4096, 1 << 18])
+@pytest.mark.parametrize("T", [1, 4, 4096, 12289, 1 << 14, 1 << 17, 1 << 18])
 @pytest.mark.parametrize("case", ["mixed", "all_miss", "all_hit"])
 def test_hash_probe_matches_pallas(T, case):
+    # 12289 and 2^14 (q21's supplier table at SF1) fall in the Hopper
+    # kernel's block regime, 2^17 (SF10) and 2^18 (the engine's cap) in
+    # its cluster regime
     present = {"mixed": 0.6, "all_miss": 0.0, "all_hit": 1.0}[case]
     keys, table, mask = _probe_inputs(T + len(case), 2, 384, T, present=present,
                                       p_mask=1.0 if case == "all_hit" else 0.8)
@@ -244,6 +247,37 @@ def test_hash_probe_guards_unclamped_keys():
                                   torch.from_numpy(mask))
     assert rows.tolist() == [[9, 5, 5, 9, 9, 7]]
     assert matched.all()
+
+
+# the regime boundaries as functions of S, one block's table entries
+_REGIME_EDGES = [("1", "shared", 1), ("12288", "shared", 1), ("12289", "block", 1),
+                 ("S", "block", 1), ("S+1", "split", 1), ("9S/4", "split", 1),
+                 ("9S/4+1", "cluster", 2), ("4S", "cluster", 2), ("4S+1", "cluster", 2),
+                 ("8S", "cluster", 2), ("8S+1", "global", 1)]
+
+
+def _table_len(expr: str, s: int) -> int:
+    """"12288" -> 12288, "S" -> s, "4S+1" -> 4 s + 1, "9S/4+1" -> 9 s // 4 + 1."""
+    if "S" not in expr:
+        return int(expr)
+    k, _, rest = expr.partition("S")
+    div, _, plus = rest.partition("+")
+    return int(k or 1) * s // int(div[1:] or 1) + int(plus or 0)
+
+
+@pytest.mark.parametrize("optin,S", [(232448, 58112), (232447, 58104), (101376, 25344),
+                                     (49152, 12288)])
+def test_hash_probe_block_max(optin, S):
+    # S counts whole 32-byte granules of the opt-in shared memory (an H100
+    # block opts in to 232,448 B; an A100's 101,376 B; the 48 KB default)
+    assert ck.hash_probe_block_max(optin) == S
+
+
+@pytest.mark.parametrize("optin", [232448, 101376])
+@pytest.mark.parametrize("expr,regime,cluster", _REGIME_EDGES, ids=[e[0] for e in _REGIME_EDGES])
+def test_hash_probe_regime_boundaries(expr, regime, cluster, optin):
+    T = _table_len(expr, ck.hash_probe_block_max(optin))
+    assert ck.hash_probe_regime(T, optin) == (regime, cluster)
 
 
 # -- dict_filter --------------------------------------------------------------
@@ -410,20 +444,42 @@ def test_final_stage_segscan_bits_match_reference(seed, dtype):
             np.testing.assert_array_equal(got.view(bits), want.view(bits), err_msg=func)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("T", [32, 4, 1 << 18])
-def test_cuda_hash_probe_matches_plain_form(T):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card")
+def _cuda_probe_case(T, seed=5):
+    """Probe inputs on the card (8 x 262147 rows, no multiple of 4), with
+    every 97th key outside [0, T) to exercise the gather rule."""
+    keys, table, mask = _probe_inputs(seed, 8, 262147, T, present=0.7)
+    keys[:, ::97] = np.where(np.arange(keys[:, ::97].size).reshape(8, -1) % 2 == 0,
+                             -keys[:, ::97] - 1, keys[:, ::97] + T)
     dev = torch.device("cuda", 0)
-    keys, table, mask = (torch.from_numpy(a).to(dev)
-                         for a in _probe_inputs(5, 8, 262147, T, present=0.7))
+    return tuple(torch.from_numpy(a).to(dev) for a in (keys, table, mask))
+
+
+def _cuda_probe_exact(keys, table, mask):
     r1, m1 = ck.hash_probe(keys, table, mask)
     r2, m2 = ck.hash_probe(keys, table, mask)
     rp, mp = ck.hash_probe_plain(keys, table, mask)
     torch.cuda.synchronize()
     assert torch.equal(r1, r2) and torch.equal(m1, m2)
     assert torch.equal(r1, rp) and torch.equal(m1, mp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [32, 4, 1 << 18, 12288, 12289, 1 << 14, 1 << 17, "S", "S+1",
+                               "9S/4", "9S/4+1", "4S", "4S+1", "8S", "8S+1"])
+def test_cuda_hash_probe_matches_plain_form(T):
+    # every regime at every boundary, in the regime T chooses: exact, two
+    # runs bitwise identical, the launch recorded under that regime
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    dev = torch.device("cuda", 0)
+    optin = ck.hash_probe_smem_optin(dev)
+    assert ck.smem_max_entries("hash_probe") == ck.HP_SHARED_MAX
+    T = _table_len(str(T), ck.hash_probe_block_max(optin))
+    keys, table, mask = _cuda_probe_case(T)
+    ck.reset_launches()
+    _cuda_probe_exact(keys, table, mask)
+    regime, cluster = ck.hash_probe_regime(T, optin)
+    assert ck.HASH_PROBE_LAUNCHES == {(8, 262147, T, regime, cluster): 2}
 
 
 @pytest.mark.gpu
