@@ -17,8 +17,11 @@ selects the device engine, `ballista.tpu.*` tunes it, and the
 
 This package imports `torch`, never `jax`, and no module of
 `ballista_tpu`: the host modules it needs (SQL frontend, plan IR, CPU
-operators, encoder, cost model) are its own copies. It carries the local
-SessionContext path so far; ROADMAP.md lists what is still to port.
+operators, encoder, cost model, scheduler, shuffle, Flight, serde) are
+its own copies. It carries the local SessionContext path and the
+distributed standalone mode (`SessionContext.standalone()`: in-process
+scheduler, executors and Flight server) so far; ROADMAP.md lists what is
+still to port.
 """
 
 from ballista_tpu_torch.version import BALLISTA_VERSION, WIRE_PROTOCOL_VERSION

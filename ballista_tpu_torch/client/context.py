@@ -1,10 +1,23 @@
 """Session context + DataFrame front end.
 
 The reference's client surface (ballista/client/src/extension.rs) with SQL
-and DataFrame entry points, in its local mode only: plan and execute in
-this process (DataFusion-alone analog). The standalone and remote modes,
-prepared statements and continuous queries need the scheduler, executor
-daemon, serving tier and Flight, which this package does not carry yet.
+and DataFrame entry points. Modes here:
+
+- "local":      plan and execute in this process (DataFusion-alone analog).
+- "standalone": `SessionContext.standalone()`: an in-process scheduler and
+                executors over the real task/shuffle machinery (reference:
+                standalone.rs). The scheduler splits the plan into stages at
+                its shuffle boundaries and ships one task per partition;
+                with `ballista.executor.engine=tpu` each executor hands its
+                stage to the CUDA engine (engine/cuda_engine.py). Stages
+                exchange Arrow IPC shuffle files, read locally or over the
+                in-process Flight server, and the client fetches the final
+                stage's partitions. On a machine without a card, call
+                `ops.cuda.runtime.use_cpu()` first.
+
+The remote mode (gRPC to an external scheduler), prepared statements,
+continuous queries and appends through the scheduler are not ported yet
+(ROADMAP A8b and A9): `SessionContext.remote()` raises.
 """
 
 from __future__ import annotations
@@ -35,11 +48,47 @@ from ballista_tpu_torch.sql.planner import SqlPlanner
 
 
 class SessionContext:
-    def __init__(self, config: BallistaConfig | None = None):
+    def __init__(self, config: BallistaConfig | None = None, mode: str = "local",
+                 num_executors: int = 1, vcores: int = 4):
+        if mode not in ("local", "standalone"):
+            raise NotImplementedError(
+                f"{mode!r} mode is not ported to ballista_tpu_torch yet (ROADMAP A8b); "
+                "use SessionContext() or SessionContext.standalone()")
         self.config = config or BallistaConfig()
-        self.mode = "local"
+        self.mode = mode
         self.catalog = Catalog()
         self.session_id: SessionId = new_session_id()
+        self._cluster = None  # StandaloneCluster (standalone mode)
+        self._num_executors = num_executors
+        self._vcores = vcores
+
+    @classmethod
+    def standalone(cls, config: BallistaConfig | None = None, num_executors: int = 1,
+                   vcores: int = 4) -> "SessionContext":
+        """In-process scheduler + executors over the real task/shuffle
+        machinery (reference: SessionContextExt::standalone(),
+        client/src/extension.rs:146)."""
+        return cls(config, mode="standalone", num_executors=num_executors, vcores=vcores)
+
+    @classmethod
+    def remote(cls, scheduler_url: str, config: BallistaConfig | None = None) -> "SessionContext":
+        """Connect to an external scheduler over gRPC
+        (reference: SessionContextExt::remote()). Not ported yet."""
+        raise NotImplementedError(
+            f"remote mode ({scheduler_url}) is not ported to ballista_tpu_torch yet "
+            "(ROADMAP A8b); use SessionContext() or SessionContext.standalone()")
+
+    def _ensure_cluster(self):
+        if self._cluster is None:
+            from ballista_tpu_torch.executor.standalone import StandaloneCluster
+
+            self._cluster = StandaloneCluster(self._num_executors, self._vcores, config=self.config)
+        return self._cluster
+
+    def shutdown(self) -> None:
+        if self._cluster is not None:
+            self._cluster.shutdown()
+            self._cluster = None
 
     # -- registration -------------------------------------------------------
 
@@ -95,6 +144,10 @@ class SessionContext:
         batches; columns match the table schema by name and are cast to its
         types. Returns {"table", "version", "rows"}.
         """
+        if self.mode != "local":
+            raise NotImplementedError(
+                "append through the scheduler is not ported to ballista_tpu_torch "
+                "yet (ROADMAP A9); append in local mode")
         name = table.lower()
         provider = self.catalog.get(name)
         schema = provider.arrow_schema() if provider is not None else None
@@ -270,8 +323,40 @@ class DataFrame:
     def collect(self) -> pa.Table:
         if isinstance(self.plan, Explain):
             return self._collect_explain()
+        if self.ctx.mode == "standalone":
+            return self._collect_standalone()
         physical = self.ctx.create_physical_plan(self.plan)
         return self.ctx.execute_collect(physical)
+
+    def _collect_standalone(self) -> pa.Table:
+        """Submit through the in-process scheduler: real stages, real
+        shuffle files, results fetched from the final stage's partitions
+        (the DistributedQueryExec flow, distributed_query.rs:211)."""
+        from ballista_tpu_torch.errors import ExecutionError
+
+        cluster = self.ctx._ensure_cluster()
+        scheduler = cluster.scheduler
+        session_id = scheduler.sessions.create_or_update(
+            self.ctx.config.to_key_value_pairs(), str(self.ctx.session_id)
+        )
+        if self.sql_text is not None and not self.ctx._has_memory_tables():
+            # inline_results: this process can accept a result table right
+            # in the status dict (serving-tier result-cache hits)
+            job_id = scheduler.submit_sql(self.sql_text, session_id, inline_results=True)
+        else:
+            # in-memory tables can't be re-resolved from SQL on the
+            # scheduler: plan CLIENT-side and submit the physical plan
+            # (MemoryScanNode ships the batches as IPC bytes) — the
+            # reference's BallistaQueryPlanner flow
+            physical = self.ctx.create_physical_plan(self.plan)
+            job_id = scheduler.submit_physical_plan(physical, session_id)
+        from ballista_tpu_torch.config import CLIENT_JOB_TIMEOUT_S
+
+        status = scheduler.wait_for_job(
+            job_id, timeout=float(self.ctx.config.get(CLIENT_JOB_TIMEOUT_S)))
+        if status["state"] != "successful":
+            raise ExecutionError(f"job {job_id} {status['state']}: {status.get('error', '')}")
+        return fetch_job_results(status, self.ctx.config)
 
     def _collect_explain(self) -> pa.Table:
         assert isinstance(self.plan, Explain)
@@ -279,7 +364,27 @@ class DataFrame:
         physical = self.ctx.create_physical_plan(self.plan.input)
         types = ["logical_plan", "physical_plan"]
         plans = [logical.display(), physical.display()]
-        if self.plan.analyze:
+        if self.plan.analyze and self.ctx.mode == "standalone":
+            # distributed EXPLAIN ANALYZE: run the job through the cluster,
+            # then render per-stage operator metrics from the scheduler
+            # (reference: DistributedExplainAnalyzeExec + GetJobMetrics)
+            inner = DataFrame(self.ctx, self.plan.input)
+            inner.collect()
+            sched = self.ctx._cluster.scheduler
+            with sched._jobs_lock:
+                g = list(sched.jobs.values())[-1]
+            lines = []
+            for sid in sorted(g.stage_metrics):
+                lines.append(f"stage {sid}:")
+                for m in g.stage_metrics[sid][:100]:
+                    lines.append(
+                        f"  {'  ' * int(m.get('depth', 0))}{m.get('name', '')}: "
+                        f"rows={m.get('output_rows', 0)} "
+                        f"elapsed_ms={m.get('elapsed_ns', 0) / 1e6:.2f}"
+                    )
+            types.append("analyzed_plan (distributed)")
+            plans.append("\n".join(lines))
+        elif self.plan.analyze:
             # compile FIRST so the analyzed tree is the executed tree —
             # execute_collect compiles a local copy, which would leave the
             # displayed plan with empty metrics (and hide the TPU stages)
@@ -333,3 +438,35 @@ def conform_append_batches(data, schema: pa.Schema | None) -> list[pa.RecordBatc
             raise PlanningError(f"append is missing column {f.name!r}")
         cols.append(tbl.column(idx).cast(f.type))
     return pa.Table.from_arrays(cols, schema=schema).combine_chunks().to_batches()
+
+
+def fetch_job_results(status: dict, config: BallistaConfig) -> pa.Table:
+    """Fetch a successful job's final-stage partitions (local fast path or
+    Flight) and assemble the client result table."""
+    from ballista_tpu_torch.plan.physical import TaskContext
+    from ballista_tpu_torch.shuffle.reader import fetch_partition
+
+    from ballista_tpu_torch.config import FLIGHT_PROXY, SHUFFLE_READER_FORCE_REMOTE
+
+    # serving-tier result-cache hit: the table rode back in the status
+    # dict; nothing to fetch
+    inline = status.get("inline_result")
+    if inline is not None:
+        return inline
+    schema = status["schema"].to_arrow() if status.get("schema") is not None else None
+    locs = sorted(status.get("partitions", []), key=lambda l: (l.output_partition, l.map_partition))
+    ctx = TaskContext(config)
+    # a configured Flight proxy implies executors are not client-reachable:
+    # never take the same-path local shortcut (it only holds when the client
+    # shares the executor's filesystem)
+    force = bool(config.get(SHUFFLE_READER_FORCE_REMOTE)) or bool(config.get(FLIGHT_PROXY))
+    batches = []
+    for loc in locs:
+        for b in fetch_partition(loc, ctx, force_remote=force):
+            if b.num_rows:
+                batches.append(b)
+    if not batches:
+        if schema is None:
+            return pa.table({})
+        return pa.table({f.name: pa.array([], f.type) for f in schema}, schema=schema)
+    return pa.Table.from_batches(batches, schema=batches[0].schema)

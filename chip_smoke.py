@@ -108,8 +108,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
    equal to its whole run, and (f) the round trip of (c) through the disk
    tier (host tier cut to 1 byte), leaving no .tmp file. Chaos is disarmed,
    the blocker freed and every cache cleared in `finally`;
-8. print one JSON line of kernel numbers, the card line, and last
-   {"ok": true, "device": {...}}.
+8. the distributed standalone mode: q1, q6, q3, q5 (auto mode) and q12
+   (fused_pallas) at --scale and q4 at --q4-scale through
+   SessionContext.standalone(num_executors=1, vcores=4) with engine=tpu:
+   the in-process scheduler cuts stages at the shuffle boundaries, ships
+   one task per partition, each executor hands its stage to the CUDA
+   engine, and the stages exchange Arrow IPC shuffle files. A cold run and
+   best of 3, each answer equal to the same query's local answer on the
+   card from phase 4 or 6 (ints, dates, strings exact; floats within rtol
+   1e-9); every device stage on the card in every task with no fallback,
+   one device pass per task, and every device node kind of the local run
+   present; one traced warm run. Per query one JSON line: the walls, the
+   stages and tasks per stage, device passes per stage beside local
+   mode's, shuffle bytes written and read, Flight RPCs, kernel launches per
+   run beside local mode's, busy time and idle share, peak device bytes and
+   the admission plans. Then q3 once more over two executors with
+   ballista.shuffle.reader.force_remote_read, every read over Flight, held
+   to the same answer;
+9. print one JSON line of kernel numbers (each kernel's launches on every
+   path above, the standalone mode's apart as well), the card line, and
+   last {"ok": true, "device": {...}}.
 
 Options: --scale (q1/q6/q5/q12 scale factor, default 10), --q4-scale
 (default 1), --data-dir (default build/tpch, listed in .gitignore).
@@ -862,6 +880,7 @@ def run_query(q: int, data_dir: str, dev, busy_ok: bool, answers: dict | None = 
         "hbm_plan_reason": cold.get("hbm_plan_reason"),
         "stage_shape": list(dt.shape) if dt is not None else None,
         "kernel_launches_per_run": run_launches, "cpu_engine_s": cpu_s,
+        "device_nodes": _device_nodes(runs[best + 1][0]),
         "traced_wall_s": traced_wall, "device_busy_ms": busy, "top_device_ops": top_ops,
         "busy_floor_ms": busy_floor_ms,
         "device_idle_share": None if busy is None else 1.0 - busy / 1e3 / traced_wall,
@@ -1020,7 +1039,7 @@ def run_sorted_query(q: int, data_dir: str, dev, busy_ok: bool, extra_cfg: dict,
 
     ctx = SessionContext(BallistaConfig({**QUERY_CONFIG, **extra_cfg}))
     register_tpch(ctx, data_dir)
-    times, plan_times, run_launches, sorted_recs = [], [], [], []
+    times, plan_times, run_launches, sorted_recs, stage_runs = [], [], [], [], []
     for i in range(4):  # one warm-up, then best of 3
         before = dict(ck.LAUNCHES)
         t0 = time.time()
@@ -1031,6 +1050,7 @@ def run_sorted_query(q: int, data_dir: str, dev, busy_ok: bool, extra_cfg: dict,
         run_launches.append({k: ck.LAUNCHES[k] - before[k] for k in before})
         compare_answers(tbl, cpu_tbl, q)
         stages = [n for n in _walk(physical) if isinstance(n, (TpuStageExec, TpuFinalStageExec))]
+        stage_runs.append(stages)
         partial = [s for s in stages if isinstance(s, TpuStageExec)]
         if not partial:
             raise AssertionError(f"q{q}: no device partial stage was planned")
@@ -1080,6 +1100,7 @@ def run_sorted_query(q: int, data_dir: str, dev, busy_ok: bool, extra_cfg: dict,
         "sorted_stages": [{k: r.get(k) for k in keep} for r in warm],
         "cold_sorted_stages": [{k: r.get(k) for k in keep} for r in sorted_recs[0]],
         "kernel_launches_per_run": run_launches, "cpu_engine_s": cpu_s,
+        "device_nodes": _device_nodes(stage_runs[best + 1]),
         "traced_wall_s": traced_wall, "device_busy_ms": busy, "top_device_ops": top_ops,
         "device_idle_share": None if busy is None else 1.0 - busy / 1e3 / traced_wall,
     }
@@ -1711,10 +1732,132 @@ def _probe_launches() -> list:
     return [[*k, v] for k, v in sorted(ck.HASH_PROBE_LAUNCHES.items())]
 
 
+def _device_nodes(stages) -> dict:
+    """{node kind: [nodes, device passes]} of one local run's device stages."""
+    out: dict = {}
+    for s in stages:
+        d = out.setdefault(type(s).__name__, [0, 0])
+        d[0] += 1
+        d[1] += s.tpu_count
+    return out
+
+
 def _tag(stage) -> str:
     import zlib
 
     return f"stage_{zlib.crc32(stage.fingerprint.encode()):08x}"
+
+
+# ---------------------------------------------------------------- standalone
+
+# phase 8: (query, data, config) through SessionContext.standalone(...,
+# num_executors=1, vcores=4); "big" is --scale, "small" --q4-scale, as the
+# same query's local run in phase 4 or 6
+STANDALONE_QUERIES = (
+    (1, "big", {}), (6, "big", {}), (3, "big", {}), (5, "big", {}),
+    (12, "big", {"ballista.tpu.fusion.mode": "fused_pallas"}), (4, "small", {}),
+)
+
+
+def run_standalone_query(q: int, data_dir: str, extra_cfg: dict, dev, busy_ok: bool,
+                         local_rec: dict, local_tbl, num_executors: int = 1,
+                         force_remote: bool = False, warm_runs: int = 3) -> dict:
+    """One query through the standalone cluster: a cold run and best of
+    `warm_runs`, each answer equal to the port's local answer on the card
+    (PERF.md §2's rule); every device stage on the card in every task with
+    no fallback, holding every device node kind local mode ran; one traced
+    warm run. Per stage: tasks, device passes summed over them, shuffle
+    bytes written and read; the Flight server's RPCs and bytes; kernel
+    launches per run; peak device bytes and the admission plans."""
+    import torch
+
+    from ballista_tpu_torch.client.context import SessionContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.ops.cuda import cuda_kernels as ck
+    from ballista_tpu_torch.ops.cuda.stage_compiler import RUN_STATS
+    from ballista_tpu_torch.testing.standalone_stats import last_job, stage_stats
+    from ballista_tpu_torch.testing.tpchgen import register_tpch
+
+    with open(os.path.join(ROOT, "benchmarks", "tpch", "queries", f"q{q}.sql")) as f:
+        sql = f.read()
+    cfg = {**QUERY_CONFIG, **extra_cfg}
+    if force_remote:
+        cfg["ballista.shuffle.reader.force_remote_read"] = True
+    ctx = SessionContext.standalone(BallistaConfig(cfg), num_executors=num_executors, vcores=4)
+    try:
+        register_tpch(ctx, data_dir)
+        srv = ctx._ensure_cluster().flight_server
+        RUN_STATS.clear()
+        torch.cuda.reset_peak_memory_stats(dev)
+        walls, run_launches, flight, stats_runs = [], [], [], []
+        for _ in range(1 + warm_runs):
+            before, served = dict(ck.LAUNCHES), dict(srv.stats)
+            t0 = time.time()
+            tbl = ctx.sql(sql).collect()
+            walls.append(time.time() - t0)
+            run_launches.append({k: ck.LAUNCHES[k] - before[k] for k in before})
+            flight.append({k: srv.stats[k] - served[k] for k in
+                           ("do_get", "coalesced_rpc", "block_rpc", "bytes_served")})
+            compare_answers(tbl, local_tbl, q)
+            stats_runs.append(stage_stats(last_job(ctx._cluster.scheduler)))
+        peak = torch.cuda.max_memory_allocated(dev)
+        plans = {tag: {k: r.get(k) for k in ("hbm_plan", "grace_splits", "hbm_oom_retries")}
+                 for tag, r in RUN_STATS.stages().items() if "hbm_plan" in r}
+        kinds: dict = {}
+        for stats in stats_runs:
+            for sid, st in stats.items():
+                if st["fallbacks"]:
+                    raise AssertionError(f"q{q} standalone: stage {sid} fell back to the "
+                                         f"CPU engine ({st['device']})")
+                for kind, (nodes, passes, _fb) in st["device"].items():
+                    if not passes == nodes == st["tasks"]:
+                        raise AssertionError(f"q{q} standalone: stage {sid}: {nodes} {kind} "
+                                             f"ran {passes} device passes in {st['tasks']} tasks")
+                    kinds[kind] = kinds.get(kind, 0) + nodes
+        missing = sorted(set(local_rec["device_nodes"]) - set(kinds))
+        if missing:
+            raise AssertionError(f"q{q} standalone: no stage ran {missing} on the card, "
+                                 "as local mode does")
+        if force_remote:
+            stats = stats_runs[-1]
+            if (sum(st["bytes_read_local"] for st in stats.values())
+                    or not sum(st["bytes_fetched_remote"] for st in stats.values())):
+                raise AssertionError(f"q{q} standalone: a shuffle read did not go over Flight")
+        busy = traced_wall = None
+        if busy_ok and warm_runs:
+            t0 = time.time()
+            busy = device_busy_ms(lambda: ctx.sql(sql).collect())
+            traced_wall = time.time() - t0
+    finally:
+        ctx.shutdown()
+    warm = walls[1:]
+    best = min(range(len(warm)), key=lambda k: warm[k]) + 1 if warm else 0
+    stats = stats_runs[best]
+    local_runs = local_rec["kernel_launches_per_run"]
+    return {
+        "query": f"standalone_q{q}" + ("_flight" if force_remote else ""),
+        "num_executors": num_executors, "vcores": 4, "config": extra_cfg,
+        "cold_wall_s": walls[0], "wall_s": walls[best], "times_s": warm,
+        "local_wall_s": local_rec["wall_s"], "local_cold_wall_s": local_rec["cold_wall_s"],
+        "stages": len(stats),
+        "tasks_per_stage": {sid: st["tasks"] for sid, st in stats.items()},
+        "device_passes_per_stage": {sid: st["device_passes"] for sid, st in stats.items()},
+        "device_nodes_per_stage": {sid: st["device"] for sid, st in stats.items() if st["device"]},
+        "local_device_nodes": local_rec["device_nodes"],
+        "fallbacks": sum(st["fallbacks"] for st in stats.values()),
+        "shuffle_bytes_written": sum(st["shuffle_bytes_written"] for st in stats.values()),
+        "shuffle_bytes_read_local": sum(st["bytes_read_local"] for st in stats.values()),
+        "shuffle_bytes_fetched_remote": sum(st["bytes_fetched_remote"] for st in stats.values()),
+        "reader_fetch_rpcs": sum(st["fetch_rpcs"] for st in stats.values()),
+        "flight_per_run": flight,
+        "kernel_launches_per_run": run_launches,
+        "local_kernel_launches_per_run": local_runs[-1],
+        "device_busy_ms": busy, "traced_wall_s": traced_wall,
+        "device_idle_share": None if busy is None else 1.0 - busy / 1e3 / traced_wall,
+        "local_device_busy_ms": local_rec["device_busy_ms"],
+        "local_device_idle_share": local_rec["device_idle_share"],
+        "peak_device_bytes": peak, "hbm_plan": plans,
+    }
 
 
 # ---------------------------------------------------------------- main
@@ -1790,7 +1933,7 @@ def main(argv=None) -> int:
 
         def sorted_query(q: int, path_dir: str, scale: float, extra: dict) -> None:
             cuda_kernels.reset_launches()
-            r = run_sorted_query(q, path_dir, dev, busy_ok, extra, answers)
+            r = recs[q] = run_sorted_query(q, path_dir, dev, busy_ok, extra, answers)
             r["launches"] = launches[q] = dict(cuda_kernels.LAUNCHES)
             r["hash_probe_launches"] = _probe_launches()
             emit(r, scale)
@@ -1837,12 +1980,33 @@ def main(argv=None) -> int:
             r["card"] = card
             print(json.dumps(r), flush=True)
         log(f"out-of-core phase took {time.time() - t7:.1f}s, done at {time.time() - t0:.1f}s")
+        # the standalone mode: the launch counts are set to 0 just before
+        # each query's runs and read just after them
+        t8 = time.time()
+        for q, which, extra in STANDALONE_QUERIES:
+            path_dir, scale = ((big_dir, args.scale) if which == "big"
+                               else (q4_dir, args.q4_scale))
+            cuda_kernels.reset_launches()
+            r = run_standalone_query(q, path_dir, extra, dev, busy_ok, recs[q], answers[q][0])
+            r["launches"] = launches[f"standalone_q{q}"] = dict(cuda_kernels.LAUNCHES)
+            emit(r, scale)
+            log(f"standalone q{q} done at {time.time() - t0:.1f}s")
+        # q3 once more over two executors, every shuffle read over Flight
+        cuda_kernels.reset_launches()
+        r = run_standalone_query(3, big_dir, {}, dev, busy_ok, recs[3], answers[3][0],
+                                 num_executors=2, force_remote=True, warm_runs=0)
+        r["launches"] = launches["standalone_q3_flight"] = dict(cuda_kernels.LAUNCHES)
+        emit(r, args.scale)
+        log(f"standalone phase took {time.time() - t8:.1f}s, done at {time.time() - t0:.1f}s")
         path_of = {"masked_group_reduce": (4,), "hash_probe": (5, 21, "q21_large", "q5_grace"),
                    "dict_filter": (12,),
                    "segmented_sort": ("win_orders", "sort_customer"),
                    "topk_select": ("topk_partsupp",), "segmented_scan": ("win_orders",)}
+        standalone = [k for k in launches if str(k).startswith("standalone_")]
         for krec in krecs:
-            krec["launches"] = sum(launches[q][krec["name"]] for q in path_of[krec["name"]])
+            krec["standalone_launches"] = sum(launches[q][krec["name"]] for q in standalone)
+            krec["launches"] = (sum(launches[q][krec["name"]] for q in path_of[krec["name"]])
+                                + krec["standalone_launches"])
             if krec["launches"] < 1:
                 raise AssertionError(f"the main path launched {krec['name']} no time")
         log(f"path phase done at {time.time() - t0:.1f}s")

@@ -2,8 +2,9 @@
 
 The port stands alone: no file of it, nor chip_smoke.py, imports jax,
 jaxlib or any module of the JAX package; every `ballista_tpu_torch`
-import names a module the port has; running a query through the port
-loads nothing of the JAX package; and without CUDA the device engine
+import names a module the port has; running a query through the port,
+in local mode and in the standalone mode (scheduler, executors, shuffle
+files, Flight), loads nothing of the JAX package; and without CUDA the device engine
 raises unless the CPU was asked for.
 """
 
@@ -83,6 +84,16 @@ ctx = SessionContext(BallistaConfig({{"ballista.executor.engine": "tpu",
 register_tpch(ctx, {tpch_dir!r})
 sql = open({os.path.join(ROOT, "benchmarks", "tpch", "queries", "q4.sql")!r}).read()
 assert ctx.sql(sql).collect().num_rows > 0
+# the standalone mode: scheduler, executors, shuffle files and every read
+# over the in-process Flight server
+sa = SessionContext.standalone(BallistaConfig({{
+    "ballista.executor.engine": "tpu", "ballista.tpu.min.rows": 0,
+    "ballista.shuffle.reader.force_remote_read": True}}), num_executors=2)
+register_tpch(sa, {tpch_dir!r})
+q3 = open({os.path.join(ROOT, "benchmarks", "tpch", "queries", "q3.sql")!r}).read()
+assert sa.sql(q3).collect().num_rows > 0
+assert sa._cluster.flight_server.stats["bytes_served"] > 0
+sa.shutdown()
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "ballista_tpu") or m.startswith(("jax.", "jaxlib.", "ballista_tpu.")))
 print("LOADED", bad)
