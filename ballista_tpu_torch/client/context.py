@@ -14,10 +14,16 @@ and DataFrame entry points. Modes here:
                 in-process Flight server, and the client fetches the final
                 stage's partitions. On a machine without a card, call
                 `ops.cuda.runtime.use_cpu()` first.
+- "remote":     `SessionContext.remote("host:50050")`: gRPC to an external
+                scheduler daemon (`python -m ballista_tpu_torch.scheduler`)
+                whose executor daemons (`python -m ballista_tpu_torch.executor
+                --engine tpu --device-ordinal k`, one per card) run the
+                stages; results are fetched over Flight from the executors
+                or through the scheduler's result proxy.
 
-The remote mode (gRPC to an external scheduler), prepared statements,
-continuous queries and appends through the scheduler are not ported yet
-(ROADMAP A8b and A9): `SessionContext.remote()` raises.
+Prepared statements, continuous queries and appends through the scheduler
+are not ported yet (ROADMAP A9): `prepare` and `append` raise in the
+standalone and remote modes.
 """
 
 from __future__ import annotations
@@ -49,18 +55,16 @@ from ballista_tpu_torch.sql.planner import SqlPlanner
 
 class SessionContext:
     def __init__(self, config: BallistaConfig | None = None, mode: str = "local",
-                 num_executors: int = 1, vcores: int = 4):
-        if mode not in ("local", "standalone"):
-            raise NotImplementedError(
-                f"{mode!r} mode is not ported to ballista_tpu_torch yet (ROADMAP A8b); "
-                "use SessionContext() or SessionContext.standalone()")
+                 num_executors: int = 1, vcores: int = 4, scheduler_url: str = ""):
         self.config = config or BallistaConfig()
         self.mode = mode
         self.catalog = Catalog()
         self.session_id: SessionId = new_session_id()
         self._cluster = None  # StandaloneCluster (standalone mode)
+        self._remote = None  # RemoteSchedulerClient (remote mode)
         self._num_executors = num_executors
         self._vcores = vcores
+        self._scheduler_url = scheduler_url
 
     @classmethod
     def standalone(cls, config: BallistaConfig | None = None, num_executors: int = 1,
@@ -73,10 +77,8 @@ class SessionContext:
     @classmethod
     def remote(cls, scheduler_url: str, config: BallistaConfig | None = None) -> "SessionContext":
         """Connect to an external scheduler over gRPC
-        (reference: SessionContextExt::remote()). Not ported yet."""
-        raise NotImplementedError(
-            f"remote mode ({scheduler_url}) is not ported to ballista_tpu_torch yet "
-            "(ROADMAP A8b); use SessionContext() or SessionContext.standalone()")
+        (reference: SessionContextExt::remote())."""
+        return cls(config, mode="remote", scheduler_url=scheduler_url)
 
     def _ensure_cluster(self):
         if self._cluster is None:
@@ -84,6 +86,13 @@ class SessionContext:
 
             self._cluster = StandaloneCluster(self._num_executors, self._vcores, config=self.config)
         return self._cluster
+
+    def _ensure_remote(self):
+        if self._remote is None:
+            from ballista_tpu_torch.client.remote import RemoteSchedulerClient
+
+            self._remote = RemoteSchedulerClient(self._scheduler_url, self.config)
+        return self._remote
 
     def shutdown(self) -> None:
         if self._cluster is not None:
@@ -206,6 +215,12 @@ class SessionContext:
             return DataFrame(self, plan, sql_text=query)
         raise PlanningError(f"unsupported statement {type(stmt).__name__}")
 
+    def prepare(self, query: str):
+        """Prepared statements (the serving tier's surface) are not ported
+        yet (ROADMAP A9)."""
+        raise NotImplementedError(
+            "prepared statements are not ported to ballista_tpu_torch yet (ROADMAP A9)")
+
     def table(self, name: str) -> "DataFrame":
         from ballista_tpu_torch.plan.logical import TableScan
 
@@ -325,6 +340,8 @@ class DataFrame:
             return self._collect_explain()
         if self.ctx.mode == "standalone":
             return self._collect_standalone()
+        if self.ctx.mode == "remote":
+            return self.ctx._ensure_remote().collect(self)
         physical = self.ctx.create_physical_plan(self.plan)
         return self.ctx.execute_collect(physical)
 
@@ -381,6 +398,29 @@ class DataFrame:
                         f"  {'  ' * int(m.get('depth', 0))}{m.get('name', '')}: "
                         f"rows={m.get('output_rows', 0)} "
                         f"elapsed_ms={m.get('elapsed_ns', 0) / 1e6:.2f}"
+                    )
+            types.append("analyzed_plan (distributed)")
+            plans.append("\n".join(lines))
+        elif self.plan.analyze and self.ctx.mode == "remote":
+            # remote EXPLAIN ANALYZE: submit the physical plan, then fetch
+            # per-stage operator metrics over the GetJobMetrics rpc
+            from ballista_tpu_torch.errors import ExecutionError
+
+            client = self.ctx._ensure_remote()
+            job_id = client.execute_physical(physical)
+            status = client.wait_for_job(job_id)
+            if status["state"] != "successful":
+                raise ExecutionError(
+                    f"job {job_id} {status['state']}: {status.get('error', '')}"
+                )
+            metrics = client.job_metrics(job_id)
+            lines = []
+            for sp in metrics.stages:
+                lines.append(f"stage {sp.stage_id}:")
+                for m in list(sp.metrics)[:100]:
+                    lines.append(
+                        f"  {'  ' * m.depth}{m.name}: rows={m.output_rows} "
+                        f"elapsed_ms={m.elapsed_ns / 1e6:.2f}"
                     )
             types.append("analyzed_plan (distributed)")
             plans.append("\n".join(lines))

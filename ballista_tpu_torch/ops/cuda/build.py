@@ -87,6 +87,8 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            built = os.path.exists(_target(name)[1])
             lib = ctypes.CDLL(build_all((name,))[name])
             _libs[name] = lib
+            runtime.record_kernel_load(built)
         return lib

@@ -1,4 +1,4 @@
-"""What a standalone job did, read from its ExecutionGraph.
+"""What a standalone or remote job did, read from its ExecutionGraph.
 
 The scheduler keeps the operator metrics of every task that won its
 partition (`ExecutionGraph.stage_metrics`, the rows a distributed EXPLAIN
@@ -26,34 +26,47 @@ def stage_stats(graph) -> dict[int, dict]:
     "bytes_read_local", "bytes_fetched_remote", "fetch_rpcs"}}."""
     out: dict[int, dict] = {}
     for sid in sorted(graph.stages):
-        metrics = graph.stage_metrics.get(sid, [])
-        device: dict[str, list[int]] = {}
-        read = dict.fromkeys(_READ_KEYS, 0)
-        for m in metrics:
-            name = str(m.get("name", ""))
-            kind = _DEVICE_NODE.match(name)
-            if kind is not None:
-                runs = _COUNTERS.search(name)
-                d = device.setdefault(kind.group(1), [0, 0, 0])
-                d[0] += 1
-                if runs is not None:
-                    d[1] += int(runs.group(1))
-                    d[2] += int(runs.group(2))
-            if name.startswith("ShuffleReaderExec"):
-                for k in _READ_KEYS:
-                    read[k] += int(m.get(k, 0))
-        written = sum(loc.stats.num_bytes for locs in graph.stages[sid].completed.values()
-                      for loc in locs)
-        out[sid] = {
-            # every task reports its stage root (the shuffle writer) at depth 0
-            "tasks": sum(1 for m in metrics if int(m.get("depth", 0)) == 0),
-            "device": device,
-            "device_passes": sum(d[1] for d in device.values()),
-            "fallbacks": sum(d[2] for d in device.values()),
-            "shuffle_bytes_written": written,
-            **read,
-        }
+        out[sid] = _stage_counts(graph.stage_metrics.get(sid, []))
+        out[sid]["shuffle_bytes_written"] = sum(
+            loc.stats.num_bytes for locs in graph.stages[sid].completed.values()
+            for loc in locs)
     return out
+
+
+def job_metrics_stats(result) -> dict[int, dict]:
+    """Tasks, device nodes, passes and fallbacks per stage from a scheduler
+    in another process: its GetJobMetrics reply (the rows a remote EXPLAIN
+    ANALYZE prints; `RemoteSchedulerClient.job_metrics(job_id)`). The reply
+    carries names and depths only, so the shuffle bytes and reads read 0."""
+    return {sp.stage_id: _stage_counts([{"name": m.name, "depth": m.depth}
+                                        for m in sp.metrics])
+            for sp in result.stages}
+
+
+def _stage_counts(metrics: list[dict]) -> dict:
+    device: dict[str, list[int]] = {}
+    read = dict.fromkeys(_READ_KEYS, 0)
+    for m in metrics:
+        name = str(m.get("name", ""))
+        kind = _DEVICE_NODE.match(name)
+        if kind is not None:
+            runs = _COUNTERS.search(name)
+            d = device.setdefault(kind.group(1), [0, 0, 0])
+            d[0] += 1
+            if runs is not None:
+                d[1] += int(runs.group(1))
+                d[2] += int(runs.group(2))
+        if name.startswith("ShuffleReaderExec"):
+            for k in _READ_KEYS:
+                read[k] += int(m.get(k, 0))
+    return {
+        # every task reports its stage root (the shuffle writer) at depth 0
+        "tasks": sum(1 for m in metrics if int(m.get("depth", 0)) == 0),
+        "device": device,
+        "device_passes": sum(d[1] for d in device.values()),
+        "fallbacks": sum(d[2] for d in device.values()),
+        **read,
+    }
 
 
 def last_job(scheduler):

@@ -128,17 +128,21 @@ def generate_tpch(out_dir: str, scale: float = 0.01, seed: int = 42,
     paths: dict[str, str] = {}
 
     def write(name: str, table: pa.Table, nfiles: int = 1) -> None:
+        # the files of a table are written in parallel (the parquet writer
+        # releases the GIL while it encodes and compresses)
+        from concurrent.futures import ThreadPoolExecutor
+
         d = os.path.join(out_dir, name)
         os.makedirs(d, exist_ok=True)
         n = table.num_rows
         nfiles = max(1, min(nfiles, n))
         step = -(-n // nfiles)
-        for i in range(nfiles):
-            sl = table.slice(i * step, step)
-            if sl.num_rows == 0:
-                break
-            pq.write_table(sl, os.path.join(d, f"part-{i:03d}.parquet"),
-                           row_group_size=row_group_rows, compression="zstd")
+        slices = [(i, table.slice(i * step, step)) for i in range(nfiles)]
+        slices = [(i, sl) for i, sl in slices if sl.num_rows]
+        with ThreadPoolExecutor(min(8, len(slices))) as pool:
+            list(pool.map(lambda job: pq.write_table(
+                job[1], os.path.join(d, f"part-{job[0]:03d}.parquet"),
+                row_group_size=row_group_rows, compression="zstd"), slices))
         paths[name] = d
 
     # -- region / nation ----------------------------------------------------
@@ -280,7 +284,9 @@ def generate_tpch(out_dir: str, scale: float = 0.01, seed: int = 42,
         "o_comment": _comments(rng, n_ord, 5, inject="special requests", inject_rate=0.01),
     }), files_per_table)
 
-    l_linenumber = np.concatenate([np.arange(1, c + 1) for c in lines_per]).astype(np.int64)
+    # 1..c within each order, without a Python loop over the orders
+    l_linenumber = np.arange(n_li, dtype=np.int64) - np.repeat(
+        np.cumsum(lines_per) - lines_per, lines_per) + 1
     write("lineitem", pa.table({
         "l_orderkey": l_ok,
         "l_partkey": l_pk,

@@ -108,8 +108,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    equal to its whole run, and (f) the round trip of (c) through the disk
    tier (host tier cut to 1 byte), leaving no .tmp file. Chaos is disarmed,
    the blocker freed and every cache cleared in `finally`;
-8. the distributed standalone mode: q1, q6, q3, q5 (auto mode) and q12
-   (fused_pallas) at --scale and q4 at --q4-scale through
+8. the distributed standalone mode: q6, q5 (auto mode) and q12
+   (fused_pallas) at --scale and q4 at --q4-scale (q5 launching hash_probe,
+   q12 dict_filter and q4 masked_group_reduce in every run) through
    SessionContext.standalone(num_executors=1, vcores=4) with engine=tpu:
    the in-process scheduler cuts stages at the shuffle boundaries, ships
    one task per partition, each executor hands its stage to the CUDA
@@ -125,9 +126,40 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the admission plans. Then q3 once more over two executors with
    ballista.shuffle.reader.force_remote_read, every read over Flight, held
    to the same answer;
-9. print one JSON line of kernel numbers (each kernel's launches on every
-   path above, the standalone mode's apart as well), the card line, and
-   last {"ok": true, "device": {...}}.
+9. the remote mode, the tables dropped first: (a) an in-process scheduler
+   daemon (SchedulerProcess on 127.0.0.1: gRPC, REST, the Flight result
+   proxy) and one push ExecutorProcess at engine=tpu pinned to card 0 (one
+   slot), over real sockets; q1, q6, q5 (auto mode) and q12 (fused_pallas)
+   at --scale and q4 at --q4-scale through SessionContext.remote(addr): a
+   cold run, best of 3 (one warm run for q5 and q12 when the run is late,
+   LATE_S) and one traced warm run, held as in phase 8 (each
+   answer equal to phase 4's local answer, every device stage on the card
+   in every task with no fallback, one pass per task), q4 launching
+   masked_group_reduce, q5 hash_probe and q12 dict_filter in every run;
+   per query one JSON line as phase 8's plus the scheduler's gRPC launches
+   and status updates per run; (b) a pull executor beside the push one, q3
+   with ballista.shuffle.reader.force_remote_read, every read over Flight,
+   held to phase 6's answer, with the data plane each executor served from
+   (the native server of native/ or the Python one); (c) real daemons,
+   `python -m ballista_tpu_torch.scheduler` and `python -m
+   ballista_tpu_torch.executor --engine tpu --device-ordinal 0`: the
+   executor registers with ordinal 0 and one slot (REST /api/executors),
+   q6 and q4 answer as in phase 4 with every device stage on the card
+   (the job's metrics over GetJobMetrics), the daemon builds no kernel
+   again, nvidia-smi lists one CUDA context more than this process's while
+   both daemons run and none more once the executor has gone (the
+   scheduler still up), and SIGTERM drains the executor to exit 0 with
+   none of its children (the native Flight server) left running;
+10. print one JSON line of kernel numbers (each kernel's launches on every
+   path above, the standalone and remote modes' apart as well), the card
+   line, and last {"ok": true, "device": {...}}.
+
+For the run's time limit, the engine=cpu answers of phases 4-6 are
+computed in ORACLE_WORKERS child processes while the data is generated,
+and all of them are in before the first timed run: no timed window
+shares the host with the generator or the CPU engine. Meanwhile the card
+makes q21 large's fused_xla reference run (phase 6), whose wall is not a
+cell's.
 
 Options: --scale (q1/q6/q5/q12 scale factor, default 10), --q4-scale
 (default 1), --data-dir (default build/tpch, listed in .gitignore).
@@ -195,6 +227,10 @@ def start_generate(path: str, scale: float) -> subprocess.Popen | None:
     last, so a cut run never looks complete."""
     if data_ready(path, scale):
         return None
+    try:  # a stale manifest must not mark the data ready before it is
+        os.remove(os.path.join(path, "manifest.json"))
+    except FileNotFoundError:
+        pass
     code = (
         "import json, os, sys\n"
         "from ballista_tpu_torch.testing.tpchgen import generate_tpch\n"
@@ -215,6 +251,91 @@ def wait_generate(proc: subprocess.Popen | None, path: str, scale: float) -> Non
         raise RuntimeError(f"TPC-H generation at SF{scale} exited {proc.returncode}")
     if not data_ready(path, scale):
         raise RuntimeError(f"TPC-H data at {path} is incomplete")
+
+
+# ---------------------------------------------------------------- oracle
+
+def _query_sql(q: int) -> str:
+    with open(os.path.join(ROOT, "benchmarks", "tpch", "queries", f"q{q}.sql")) as f:
+        return f.read()
+
+
+def cpu_engine_answer(sql: str, data_dir: str):
+    """The port's engine=cpu answer to `sql` over `data_dir`, and its wall."""
+    from ballista_tpu_torch.client.context import SessionContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.testing.tpchgen import register_tpch
+
+    ctx = SessionContext(BallistaConfig({"ballista.executor.engine": "cpu"}))
+    register_tpch(ctx, data_dir)
+    t0 = time.time()
+    tbl = ctx.sql(sql).collect()
+    return tbl, time.time() - t0
+
+
+def _oracle_job(sql: str, data_dir: str):
+    """cpu_engine_answer in a worker, the table as an Arrow IPC stream: a
+    pickled table carries every chunk's whole parent buffers, many times
+    the table's own bytes for the sort family's answers at SF10."""
+    import pyarrow as pa
+
+    tbl, seconds = cpu_engine_answer(sql, data_dir)
+    sink = pa.BufferOutputStream()
+    with pa.ipc.new_stream(sink, tbl.schema) as w:
+        w.write_table(tbl)
+    return sink.getvalue(), seconds
+
+
+ORACLE_WORKERS = 3  # engine=cpu answers computed at once
+
+
+class CpuOracle:
+    """The engine=cpu answers that phases 4-6 hold the card to. The CPU
+    engine takes minutes over SF10, so `submit` hands (sql, data dir) jobs
+    to ORACLE_WORKERS spawned processes while the data is generated, and
+    `wait` collects every answer and stops them before the first timed run.
+    `answer` hands one out, computing it here for a job not submitted. A job
+    that fails fails the run. The walls a worker records are taken beside
+    the other workers and the generator."""
+
+    def __init__(self):
+        self.pool = None
+        self.pending: dict = {}
+        self.answers: dict = {}
+
+    def submit(self, jobs) -> None:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        if self.pool is None:
+            self.pool = ProcessPoolExecutor(
+                ORACLE_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+        for job in jobs:
+            self.pending[job] = self.pool.submit(_oracle_job, *job)
+
+    def wait(self) -> None:
+        import pyarrow as pa
+
+        for job, answer in self.pending.items():
+            stream, seconds = answer.result()
+            self.answers[job] = pa.ipc.open_stream(stream).read_all(), seconds
+        self.stop()
+
+    def answer(self, sql: str, data_dir: str):
+        return self.answers.pop((sql, data_dir), None) or cpu_engine_answer(sql, data_dir)
+
+    def stop(self) -> None:
+        from multiprocessing import resource_tracker
+
+        if self.pool is not None:
+            self.pool.shutdown(cancel_futures=True)
+            # the pool's locks started multiprocessing's resource tracker,
+            # which would otherwise outlive this process by a moment
+            resource_tracker._resource_tracker._stop()
+        self.pool, self.pending = None, {}
+
+
+ORACLE = CpuOracle()
 
 
 # ---------------------------------------------------------------- kernels
@@ -789,11 +910,7 @@ def run_query(q: int, data_dir: str, dev, busy_ok: bool, answers: dict | None = 
 
     with open(os.path.join(ROOT, "benchmarks", "tpch", "queries", f"q{q}.sql")) as f:
         sql = f.read()
-    cpu_ctx = SessionContext(BallistaConfig({"ballista.executor.engine": "cpu"}))
-    register_tpch(cpu_ctx, data_dir)
-    t0 = time.time()
-    cpu_tbl = cpu_ctx.sql(sql).collect()
-    cpu_s = time.time() - t0
+    cpu_tbl, cpu_s = ORACLE.answer(sql, data_dir)
 
     want, extra_cfg, n_joins, kernel = PATHS[q]
     ctx = SessionContext(BallistaConfig({**QUERY_CONFIG, **extra_cfg}))
@@ -922,12 +1039,7 @@ def run_sort_query(name: str, data_dir: str, dev, busy_ok: bool) -> dict:
     from ballista_tpu_torch.testing.tpchgen import register_tpch
 
     sql, want_launches = SORT_QUERIES[name]
-    cpu_ctx = SessionContext(BallistaConfig({"ballista.executor.engine": "cpu"}))
-    register_tpch(cpu_ctx, data_dir)
-    t0 = time.time()
-    cpu_tbl = cpu_ctx.sql(sql).collect()
-    cpu_s = time.time() - t0
-    del cpu_ctx
+    cpu_tbl, cpu_s = ORACLE.answer(sql, data_dir)
 
     ctx = SessionContext(BallistaConfig(dict(SORT_CONFIG)))
     register_tpch(ctx, data_dir)
@@ -1030,12 +1142,7 @@ def run_sorted_query(q: int, data_dir: str, dev, busy_ok: bool, extra_cfg: dict,
 
     with open(os.path.join(ROOT, "benchmarks", "tpch", "queries", f"q{q}.sql")) as f:
         sql = f.read()
-    cpu_ctx = SessionContext(BallistaConfig({"ballista.executor.engine": "cpu"}))
-    register_tpch(cpu_ctx, data_dir)
-    t0 = time.time()
-    cpu_tbl = cpu_ctx.sql(sql).collect()
-    cpu_s = time.time() - t0
-    del cpu_ctx
+    cpu_tbl, cpu_s = ORACLE.answer(sql, data_dir)
 
     ctx = SessionContext(BallistaConfig({**QUERY_CONFIG, **extra_cfg}))
     register_tpch(ctx, data_dir)
@@ -1106,58 +1213,73 @@ def run_sorted_query(q: int, data_dir: str, dev, busy_ok: bool, extra_cfg: dict,
     }
 
 
-def q21_large_check(data_dir: str, scale: float, dev, busy_ok: bool) -> dict:
-    """q21 at --scale (SF10: 100,000 suppliers, a 2^17-entry supplier
-    table) under ballista.tpu.fusion.mode=fused_pallas, against the same
-    query under fused_xla on the card, whose probes are plain gathers: the
-    engine=cpu answer takes about 170 s at SF10, and q21's answer is counts
-    and names, so the two must be equal exactly, rows and order. The
-    fused_xla reference runs first, both with a device collect budget of
-    2^26 build rows; then the launch counts are set to 0
-    and fused_pallas runs cold, three times warm (best of 3) and once
-    traced, each answer checked, every device stage on the card with no
-    fallback, and the supplier probe launching hash_probe with its table in
-    the regime hash_probe_regime picks for it, in every run."""
+def _q21_large_session(data_dir: str, mode: str):
     from ballista_tpu_torch.client.context import SessionContext
     from ballista_tpu_torch.config import BallistaConfig
-    from ballista_tpu_torch.engine.cuda_engine import maybe_compile_tpu
-    from ballista_tpu_torch.ops.cuda import cuda_kernels as ck
-    from ballista_tpu_torch.ops.cuda.final_stage import TpuFinalStageExec
-    from ballista_tpu_torch.ops.cuda.stage_compiler import RUN_STATS, TpuStageExec
     from ballista_tpu_torch.testing.tpchgen import register_tpch
 
-    with open(os.path.join(ROOT, "benchmarks", "tpch", "queries", "q21.sql")) as f:
-        sql = f.read()
+    # the semi and anti subqueries build over lineitem with a join filter
+    # (60M rows at SF10): past the default collect budget of 16M rows they
+    # become partitioned joins, which no device stage claims; at 2^26 rows
+    # they collect, as they do at SF1
+    ctx = SessionContext(BallistaConfig({**QUERY_CONFIG, "ballista.tpu.fusion.mode": mode,
+                                         "ballista.tpu.broadcast.join.threshold.rows": 1 << 26}))
+    register_tpch(ctx, data_dir)
+    return ctx
 
-    def session(mode: str):
-        # the semi and anti subqueries build over lineitem with a join
-        # filter (60M rows at SF10): past the default collect budget of
-        # 16M rows they become partitioned joins, which no device stage
-        # claims; at 2^26 rows they collect, as they do at SF1
-        ctx = SessionContext(BallistaConfig({**QUERY_CONFIG, "ballista.tpu.fusion.mode": mode,
-                                             "ballista.tpu.broadcast.join.threshold.rows": 1 << 26}))
-        register_tpch(ctx, data_dir)
-        return ctx
 
-    def run(ctx):
-        t0 = time.time()
-        physical = maybe_compile_tpu(ctx.create_physical_plan(ctx.sql(sql).plan), ctx.config)
-        tbl = ctx.execute_collect(physical)
-        wall = time.time() - t0
-        stages = [n for n in _walk(physical) if isinstance(n, (TpuStageExec, TpuFinalStageExec))]
-        partial = [st for st in stages if isinstance(st, TpuStageExec)]
-        if not partial:
-            raise AssertionError("q21 large: no device partial stage was planned")
-        for st in stages:
-            if st.tpu_count < 1 or st.fallback_count != 0:
-                raise AssertionError(f"q21 large: {st.node_str()} did not run on the card "
-                                     f"(device_runs={st.tpu_count}, "
-                                     f"fallbacks={st.fallback_count})")
-        recs = RUN_STATS.stages()
-        return tbl, wall, [dict(recs.get(_tag(st), {})) for st in partial]
+def _q21_large_run(ctx):
+    """One q21 run: its answer, wall, and its partial stages' RUN_STATS;
+    every device stage on the card with no fallback."""
+    from ballista_tpu_torch.engine.cuda_engine import maybe_compile_tpu
+    from ballista_tpu_torch.ops.cuda.final_stage import TpuFinalStageExec
+    from ballista_tpu_torch.ops.cuda.stage_compiler import RUN_STATS, TpuStageExec
 
-    ref, ref_wall, _ = run(session("fused_xla"))
-    ctx = session("fused_pallas")
+    t0 = time.time()
+    physical = maybe_compile_tpu(ctx.create_physical_plan(ctx.sql(_query_sql(21)).plan),
+                                 ctx.config)
+    tbl = ctx.execute_collect(physical)
+    wall = time.time() - t0
+    stages = [n for n in _walk(physical) if isinstance(n, (TpuStageExec, TpuFinalStageExec))]
+    partial = [st for st in stages if isinstance(st, TpuStageExec)]
+    if not partial:
+        raise AssertionError("q21 large: no device partial stage was planned")
+    for st in stages:
+        if st.tpu_count < 1 or st.fallback_count != 0:
+            raise AssertionError(f"q21 large: {st.node_str()} did not run on the card "
+                                 f"(device_runs={st.tpu_count}, "
+                                 f"fallbacks={st.fallback_count})")
+    recs = RUN_STATS.stages()
+    return tbl, wall, [dict(recs.get(_tag(st), {})) for st in partial]
+
+
+def q21_large_reference(data_dir: str):
+    """q21 at --scale under fused_xla on the card, cold: the answer
+    q21_large_check holds fused_pallas to, and its wall. It runs while the
+    engine=cpu answers are computed, before any timed cell, so the card's
+    caches are dropped after it."""
+    tbl, wall, _ = _q21_large_run(_q21_large_session(data_dir, "fused_xla"))
+    _fresh_card()
+    return tbl, wall
+
+
+def q21_large_check(data_dir: str, scale: float, dev, busy_ok: bool, reference) -> dict:
+    """q21 at --scale (SF10: 100,000 suppliers, a 2^17-entry supplier
+    table) under ballista.tpu.fusion.mode=fused_pallas, against the same
+    query under fused_xla on the card (`reference`, q21_large_reference's),
+    whose probes are plain gathers: the engine=cpu answer takes about 170 s
+    at SF10, and q21's answer is counts and names, so the two must be equal
+    exactly, rows and order. Both run with a device collect budget of 2^26
+    build rows. The launch counts are set to 0 and fused_pallas runs cold,
+    three times warm (best of 3) and once traced, each answer checked, every
+    device stage on the card with no fallback, and the supplier probe
+    launching hash_probe with its table in the regime hash_probe_regime
+    picks for it, in every run."""
+    from ballista_tpu_torch.ops.cuda import cuda_kernels as ck
+
+    ref, ref_wall = reference
+    ctx = _q21_large_session(data_dir, "fused_pallas")
+    run = _q21_large_run
     T = 1 << int(10000 * scale).bit_length()  # the direct table over s_suppkey 1..10000 SF
     want = ck.hash_probe_regime(T, ck.hash_probe_smem_optin(dev))
     ck.reset_launches()
@@ -1194,7 +1316,8 @@ def q21_large_check(data_dir: str, scale: float, dev, busy_ok: bool) -> dict:
         f"count) per run {run_probes}")
     return {
         "query": "q21_large", "supplier_table": T, "wall_s": walls[best], "times_s": walls[1:],
-        "cold_wall_s": walls[0], "fused_xla_cold_wall_s": ref_wall, "rows_out": ref.num_rows,
+        "cold_wall_s": walls[0], "fused_xla_cold_wall_s": ref_wall,
+        "fused_xla_beside": "the engine=cpu oracle", "rows_out": ref.num_rows,
         "hash_probe_per_run": run_probes, "supplier_regime": list(want),
         "stages": [{k: r.get(k) for k in keep} for r in stage_recs[best]],
         "cold_stages": [{k: r.get(k) for k in keep} for r in stage_recs[0]],
@@ -1752,91 +1875,90 @@ def _tag(stage) -> str:
 
 # phase 8: (query, data, config) through SessionContext.standalone(...,
 # num_executors=1, vcores=4); "big" is --scale, "small" --q4-scale, as the
-# same query's local run in phase 4 or 6
+# same query's local run in phase 4 or 6; the kernel every run must launch.
+# q1 and q3, which launch no kernel, left this phase for the run's time
+# limit (PERF.md, PR 10 run R4): phase 9 runs q1, and q3 runs here over
+# Flight, through the same scheduler and executor code.
 STANDALONE_QUERIES = (
-    (1, "big", {}), (6, "big", {}), (3, "big", {}), (5, "big", {}),
-    (12, "big", {"ballista.tpu.fusion.mode": "fused_pallas"}), (4, "small", {}),
+    (6, "big", {}, None), (5, "big", {}, "hash_probe"),
+    (12, "big", {"ballista.tpu.fusion.mode": "fused_pallas"}, "dict_filter"),
+    (4, "small", {}, "masked_group_reduce"),
 )
 
 
-def run_standalone_query(q: int, data_dir: str, extra_cfg: dict, dev, busy_ok: bool,
-                         local_rec: dict, local_tbl, num_executors: int = 1,
-                         force_remote: bool = False, warm_runs: int = 3) -> dict:
-    """One query through the standalone cluster: a cold run and best of
-    `warm_runs`, each answer equal to the port's local answer on the card
-    (PERF.md §2's rule); every device stage on the card in every task with
-    no fallback, holding every device node kind local mode ran; one traced
-    warm run. Per stage: tasks, device passes summed over them, shuffle
-    bytes written and read; the Flight server's RPCs and bytes; kernel
-    launches per run; peak device bytes and the admission plans."""
+def _drive_cluster(ctx, scheduler_of, q: int, label: str, dev, busy_ok: bool,
+                   local_rec: dict, local_tbl, flight_servers=(), rpc=None,
+                   force_remote: bool = False, warm_runs: int = 3, kernel: str | None = None) -> dict:
+    """One query through a cluster (`scheduler_of()`: its SchedulerServer,
+    in this process): a cold run and best of `warm_runs`, each answer equal
+    to the port's local answer on the card (PERF.md §2's rule); every device
+    stage on the card in every task with no fallback, holding every device
+    node kind local mode ran; `kernel`, where given, launched in every run;
+    one traced warm run. Per stage: tasks, device passes summed over them,
+    shuffle bytes written and read; the Flight servers' RPCs and bytes; the
+    scheduler's gRPC launches and status updates (`rpc`); kernel launches
+    per run; peak device bytes and the admission plans."""
     import torch
 
-    from ballista_tpu_torch.client.context import SessionContext
-    from ballista_tpu_torch.config import BallistaConfig
     from ballista_tpu_torch.ops.cuda import cuda_kernels as ck
     from ballista_tpu_torch.ops.cuda.stage_compiler import RUN_STATS
     from ballista_tpu_torch.testing.standalone_stats import last_job, stage_stats
-    from ballista_tpu_torch.testing.tpchgen import register_tpch
 
     with open(os.path.join(ROOT, "benchmarks", "tpch", "queries", f"q{q}.sql")) as f:
         sql = f.read()
-    cfg = {**QUERY_CONFIG, **extra_cfg}
+    RUN_STATS.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls, run_launches, flight, rpcs, stats_runs = [], [], [], [], []
+    flight_keys = ("do_get", "coalesced_rpc", "block_rpc", "bytes_served")
+    for _ in range(1 + warm_runs):
+        before = dict(ck.LAUNCHES)
+        served = [dict(s.stats) for s in flight_servers]
+        sent = rpc.snapshot() if rpc is not None else {}
+        t0 = time.time()
+        tbl = ctx.sql(sql).collect()
+        walls.append(time.time() - t0)
+        run_launches.append({k: ck.LAUNCHES[k] - before[k] for k in before})
+        flight.append({k: sum(s.stats[k] - b[k] for s, b in zip(flight_servers, served))
+                       for k in flight_keys})
+        if rpc is not None:
+            rpcs.append({k: v - sent[k] for k, v in rpc.snapshot().items()})
+        compare_answers(tbl, local_tbl, q)
+        stats_runs.append(stage_stats(last_job(scheduler_of())))
+        if kernel is not None and run_launches[-1][kernel] < 1:
+            raise AssertionError(f"q{q} {label}: a run launched no {kernel}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    plans = {tag: {k: r.get(k) for k in ("hbm_plan", "grace_splits", "hbm_oom_retries")}
+             for tag, r in RUN_STATS.stages().items() if "hbm_plan" in r}
+    kinds: dict = {}
+    for stats in stats_runs:
+        for sid, st in stats.items():
+            if st["fallbacks"]:
+                raise AssertionError(f"q{q} {label}: stage {sid} fell back to the "
+                                     f"CPU engine ({st['device']})")
+            for kind, (nodes, passes, _fb) in st["device"].items():
+                if not passes == nodes == st["tasks"]:
+                    raise AssertionError(f"q{q} {label}: stage {sid}: {nodes} {kind} "
+                                         f"ran {passes} device passes in {st['tasks']} tasks")
+                kinds[kind] = kinds.get(kind, 0) + nodes
+    missing = sorted(set(local_rec["device_nodes"]) - set(kinds))
+    if missing:
+        raise AssertionError(f"q{q} {label}: no stage ran {missing} on the card, "
+                             "as local mode does")
     if force_remote:
-        cfg["ballista.shuffle.reader.force_remote_read"] = True
-    ctx = SessionContext.standalone(BallistaConfig(cfg), num_executors=num_executors, vcores=4)
-    try:
-        register_tpch(ctx, data_dir)
-        srv = ctx._ensure_cluster().flight_server
-        RUN_STATS.clear()
-        torch.cuda.reset_peak_memory_stats(dev)
-        walls, run_launches, flight, stats_runs = [], [], [], []
-        for _ in range(1 + warm_runs):
-            before, served = dict(ck.LAUNCHES), dict(srv.stats)
-            t0 = time.time()
-            tbl = ctx.sql(sql).collect()
-            walls.append(time.time() - t0)
-            run_launches.append({k: ck.LAUNCHES[k] - before[k] for k in before})
-            flight.append({k: srv.stats[k] - served[k] for k in
-                           ("do_get", "coalesced_rpc", "block_rpc", "bytes_served")})
-            compare_answers(tbl, local_tbl, q)
-            stats_runs.append(stage_stats(last_job(ctx._cluster.scheduler)))
-        peak = torch.cuda.max_memory_allocated(dev)
-        plans = {tag: {k: r.get(k) for k in ("hbm_plan", "grace_splits", "hbm_oom_retries")}
-                 for tag, r in RUN_STATS.stages().items() if "hbm_plan" in r}
-        kinds: dict = {}
-        for stats in stats_runs:
-            for sid, st in stats.items():
-                if st["fallbacks"]:
-                    raise AssertionError(f"q{q} standalone: stage {sid} fell back to the "
-                                         f"CPU engine ({st['device']})")
-                for kind, (nodes, passes, _fb) in st["device"].items():
-                    if not passes == nodes == st["tasks"]:
-                        raise AssertionError(f"q{q} standalone: stage {sid}: {nodes} {kind} "
-                                             f"ran {passes} device passes in {st['tasks']} tasks")
-                    kinds[kind] = kinds.get(kind, 0) + nodes
-        missing = sorted(set(local_rec["device_nodes"]) - set(kinds))
-        if missing:
-            raise AssertionError(f"q{q} standalone: no stage ran {missing} on the card, "
-                                 "as local mode does")
-        if force_remote:
-            stats = stats_runs[-1]
-            if (sum(st["bytes_read_local"] for st in stats.values())
-                    or not sum(st["bytes_fetched_remote"] for st in stats.values())):
-                raise AssertionError(f"q{q} standalone: a shuffle read did not go over Flight")
-        busy = traced_wall = None
-        if busy_ok and warm_runs:
-            t0 = time.time()
-            busy = device_busy_ms(lambda: ctx.sql(sql).collect())
-            traced_wall = time.time() - t0
-    finally:
-        ctx.shutdown()
+        stats = stats_runs[-1]
+        if (sum(st["bytes_read_local"] for st in stats.values())
+                or not sum(st["bytes_fetched_remote"] for st in stats.values())):
+            raise AssertionError(f"q{q} {label}: a shuffle read did not go over Flight")
+    busy = traced_wall = None
+    if busy_ok and warm_runs:
+        t0 = time.time()
+        busy = device_busy_ms(lambda: ctx.sql(sql).collect())
+        traced_wall = time.time() - t0
     warm = walls[1:]
     best = min(range(len(warm)), key=lambda k: warm[k]) + 1 if warm else 0
     stats = stats_runs[best]
-    local_runs = local_rec["kernel_launches_per_run"]
     return {
-        "query": f"standalone_q{q}" + ("_flight" if force_remote else ""),
-        "num_executors": num_executors, "vcores": 4, "config": extra_cfg,
+        "query": f"{label}_q{q}" + ("_flight" if force_remote else ""),
         "cold_wall_s": walls[0], "wall_s": walls[best], "times_s": warm,
         "local_wall_s": local_rec["wall_s"], "local_cold_wall_s": local_rec["cold_wall_s"],
         "stages": len(stats),
@@ -1850,14 +1972,360 @@ def run_standalone_query(q: int, data_dir: str, extra_cfg: dict, dev, busy_ok: b
         "shuffle_bytes_fetched_remote": sum(st["bytes_fetched_remote"] for st in stats.values()),
         "reader_fetch_rpcs": sum(st["fetch_rpcs"] for st in stats.values()),
         "flight_per_run": flight,
+        **({"grpc_per_run": rpcs} if rpc is not None else {}),
         "kernel_launches_per_run": run_launches,
-        "local_kernel_launches_per_run": local_runs[-1],
+        "local_kernel_launches_per_run": local_rec["kernel_launches_per_run"][-1],
         "device_busy_ms": busy, "traced_wall_s": traced_wall,
         "device_idle_share": None if busy is None else 1.0 - busy / 1e3 / traced_wall,
         "local_device_busy_ms": local_rec["device_busy_ms"],
         "local_device_idle_share": local_rec["device_idle_share"],
         "peak_device_bytes": peak, "hbm_plan": plans,
     }
+
+
+def run_standalone_query(q: int, data_dir: str, extra_cfg: dict, dev, busy_ok: bool,
+                         local_rec: dict, local_tbl, num_executors: int = 1,
+                         force_remote: bool = False, warm_runs: int = 3,
+                         kernel: str | None = None) -> dict:
+    """One query through SessionContext.standalone(num_executors, vcores=4)
+    (_drive_cluster says what is checked and recorded)."""
+    from ballista_tpu_torch.client.context import SessionContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.testing.tpchgen import register_tpch
+
+    cfg = {**QUERY_CONFIG, **extra_cfg}
+    if force_remote:
+        cfg["ballista.shuffle.reader.force_remote_read"] = True
+    ctx = SessionContext.standalone(BallistaConfig(cfg), num_executors=num_executors, vcores=4)
+    try:
+        register_tpch(ctx, data_dir)
+        cluster = ctx._ensure_cluster()
+        r = _drive_cluster(ctx, lambda: cluster.scheduler, q, "standalone", dev, busy_ok,
+                           local_rec, local_tbl, flight_servers=[cluster.flight_server],
+                           force_remote=force_remote, warm_runs=warm_runs, kernel=kernel)
+    finally:
+        ctx.shutdown()
+    return {**r, "num_executors": num_executors, "vcores": 4, "config": extra_cfg}
+
+
+# ---------------------------------------------------------------- remote
+
+# phase 9 (a): (query, data, config, the kernel every run must launch)
+# through SessionContext.remote against an in-process scheduler daemon and
+# one executor pinned to card 0 (one slot)
+REMOTE_QUERIES = (
+    (1, "big", {}, None), (6, "big", {}, None), (5, "big", {}, "hash_probe"),
+    (12, "big", {"ballista.tpu.fusion.mode": "fused_pallas"}, "dict_filter"),
+    (4, "small", {}, "masked_group_reduce"),
+)
+# The run must end within 1200 s, and its host-bound phases took up to 1.5x
+# longer in one run than in another (PERF.md, PR 10 runs R3, R4). One slot
+# serializes the CPU join stages of q5 and q12, whose warm runs take 6-26 s
+# each: when phase 9 (a) reaches one of them past LATE_S, it keeps one warm
+# run instead of best of 3.
+REMOTE_SLOW = (5, 12)
+LATE_S = 800.0
+REMOTE_DIR = os.path.join(ROOT, "build", "remote")  # executors' work dirs, daemon logs
+DAEMON_DEADLINE_S = 120.0
+
+
+class RpcCounts:
+    """The scheduler's gRPC task traffic: LaunchMultiTask calls and the
+    tasks they carry (push mode), tasks handed out in PollWork replies (pull
+    mode), and the RPCs that brought task statuses (UpdateTaskStatus, or a
+    PollWork carrying statuses) with the statuses they carried."""
+
+    def __init__(self, server):
+        import threading
+
+        self._lock = threading.Lock()
+        self.counts = dict.fromkeys(("launch_rpcs", "launched_tasks", "polled_tasks",
+                                     "status_updates", "task_statuses"), 0)
+        launch, update, poll = server.launcher.launch, server.update_task_status, server.poll_work
+
+        def counted_launch(executor_id, tasks, srv):
+            self._add(launch_rpcs=1, launched_tasks=len(tasks))
+            return launch(executor_id, tasks, srv)
+
+        def counted_update(executor_id, results):
+            if results:
+                self._add(status_updates=1, task_statuses=len(results))
+            return update(executor_id, results)
+
+        def counted_poll(metadata, can_accept, free_slots, results):
+            out = poll(metadata, can_accept, free_slots, results)
+            self._add(polled_tasks=len(out), status_updates=int(bool(results)),
+                      task_statuses=len(results))
+            return out
+
+        server.launcher.launch = counted_launch
+        server.update_task_status = counted_update
+        server.poll_work = counted_poll
+
+    def _add(self, **kw) -> None:
+        with self._lock:
+            for k, v in kw.items():
+                self.counts[k] += v
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return dict(self.counts)
+
+
+def start_remote_cluster(pull: bool = False):
+    """An in-process scheduler daemon on 127.0.0.1 (REST and the Flight
+    result proxy on) and one push executor at engine=tpu pinned to card 0,
+    each on real sockets; with `pull`, a second executor in pull mode,
+    pinned to the same card. Returns (scheduler, address, executors, rpc)."""
+    import shutil
+
+    from ballista_tpu_torch.executor.executor_process import ExecutorProcess
+    from ballista_tpu_torch.scheduler.process import SchedulerProcess
+
+    sched = SchedulerProcess(bind_host="127.0.0.1", port=0, rest_port=0)
+    sched.start()
+    rpc = RpcCounts(sched.scheduler)
+    addr = f"127.0.0.1:{sched.port}"
+    execs = []
+    try:
+        for policy in ("push", "pull") if pull else ("push",):
+            work = os.path.join(REMOTE_DIR, f"inproc_{policy}")
+            shutil.rmtree(work, ignore_errors=True)
+            ex = ExecutorProcess(addr, bind_host="127.0.0.1", external_host="127.0.0.1",
+                                 engine="tpu", device_ordinal=0, policy=policy, work_dir=work)
+            execs.append(ex)
+            ex.start()
+    except BaseException:
+        stop_remote_cluster(sched, execs)
+        raise
+    return sched, addr, execs, rpc
+
+
+def stop_remote_cluster(sched, execs) -> None:
+    import shutil
+
+    for ex in execs:
+        ex.shutdown()
+        shutil.rmtree(ex.work_dir, ignore_errors=True)
+    sched.shutdown()
+
+
+def run_remote_query(q: int, data_dir: str, extra_cfg: dict, kernel: str | None, dev,
+                     busy_ok: bool, local_rec: dict, local_tbl, cluster,
+                     force_remote: bool = False, warm_runs: int = 3) -> dict:
+    """One query through SessionContext.remote(addr) against `cluster`
+    (start_remote_cluster; _drive_cluster says what is checked and
+    recorded), with the data plane each executor served from."""
+    from ballista_tpu_torch.client.context import SessionContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.testing.tpchgen import register_tpch
+
+    sched, addr, execs, rpc = cluster
+    cfg = {**QUERY_CONFIG, **extra_cfg}
+    if force_remote:
+        cfg["ballista.shuffle.reader.force_remote_read"] = True
+    ctx = SessionContext.remote(addr, BallistaConfig(cfg))
+    register_tpch(ctx, data_dir)
+    r = _drive_cluster(ctx, lambda: sched.scheduler, q, "remote", dev, busy_ok, local_rec,
+                       local_tbl, flight_servers=[e.flight_server for e in execs
+                                                  if e.flight_server is not None],
+                       rpc=rpc, force_remote=force_remote, warm_runs=warm_runs, kernel=kernel)
+    return {**r, "config": extra_cfg, "executors": [
+        {"policy": e.policy, "slots": e.metadata.vcores,
+         "device_ordinal": e.metadata.device_ordinal,
+         "flight": "python" if e.flight_server is not None else "native"} for e in execs]}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rest(port: int, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+        return json.load(r)
+
+
+def _compute_apps() -> list[list]:
+    """The CUDA contexts nvidia-smi lists, as [pid, used memory] rows. In a
+    container whose pid namespace nvidia-smi cannot see into, every row
+    reads pid 1."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=30, check=True).stdout
+    log(f"nvidia-smi compute apps: {out.strip()!r}")
+    return [[int(line.split(",")[0]), line.split(",")[1].strip()]
+            for line in out.splitlines() if line.strip()]
+
+
+def _children(pid: int) -> list[int]:
+    """The pids whose parent is `pid` (from /proc)."""
+    out = []
+    for entry in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+            out.append(int(entry))
+    return out
+
+
+def _running(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def remote_daemons_check(big_dir: str, q4_dir: str, answers: dict) -> dict:
+    """Phase 9 (c), the deployment shape: `python -m
+    ballista_tpu_torch.scheduler` and `python -m ballista_tpu_torch.executor
+    --engine tpu --device-ordinal 0` as subprocesses. The executor registers
+    with ordinal 0 and one slot; q6 and q4 through SessionContext.remote
+    answer as in phase 4, every device stage on the card in every task with
+    no fallback (the job's metrics over GetJobMetrics); the daemon loads the
+    kernels phase 2 built (no new library in the build directory); nvidia-smi
+    lists the executor daemon as holding a CUDA context and not the
+    scheduler daemon: while both run after the queries, nvidia-smi lists one
+    context more than this process held alone, and after the executor's
+    exit none more, with the scheduler still up (by pid too where nvidia-smi
+    sees this pid namespace); SIGTERM drains the executor and it exits 0. On
+    a failure the daemons' stderr tails are printed."""
+    import shutil
+    import signal
+
+    from ballista_tpu_torch.client.context import SessionContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.ops.cuda import runtime
+    from ballista_tpu_torch.testing.standalone_stats import job_metrics_stats
+    from ballista_tpu_torch.testing.tpchgen import register_tpch
+
+    os.makedirs(REMOTE_DIR, exist_ok=True)
+    work = os.path.join(REMOTE_DIR, "daemon_executor")
+    shutil.rmtree(work, ignore_errors=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("BALLISTA_TORCH_PLATFORM", None)  # the card, never the CPU
+    port, rest, proxy = _free_port(), _free_port(), _free_port()
+    addr = f"127.0.0.1:{port}"
+    logs = {n: os.path.join(REMOTE_DIR, f"{n}.stderr") for n in ("scheduler", "executor")}
+    cmds = {
+        "scheduler": [sys.executable, "-m", "ballista_tpu_torch.scheduler",
+                      "--bind-host", "127.0.0.1", "--port", str(port), "--rest-port", str(rest),
+                      "--flight-proxy-port", str(proxy), "--log-level", "WARNING"],
+        "executor": [sys.executable, "-m", "ballista_tpu_torch.executor", "--scheduler", addr,
+                     "--bind-host", "127.0.0.1", "--external-host", "127.0.0.1",
+                     "--engine", "tpu", "--device-ordinal", "0", "--work-dir", work,
+                     "--log-level", "WARNING"],
+    }
+    built = sorted(os.listdir(runtime.compile_cache_dir()))
+    alone = _compute_apps()  # this process's own context
+    pids_seen = os.getpid() in [pid for pid, _ in alone]
+    procs: dict = {}
+    ok = False
+    try:
+        t0 = time.time()
+        for name in ("scheduler", "executor"):
+            procs[name] = subprocess.Popen(cmds[name], env=env, cwd=ROOT,
+                                           stdout=subprocess.DEVNULL,
+                                           stderr=open(logs[name], "wb"))
+        info = []
+        deadline = time.time() + DAEMON_DEADLINE_S
+        while not info:
+            for name, p in procs.items():
+                if p.poll() is not None:
+                    raise AssertionError(f"the {name} daemon exited {p.returncode}")
+            if time.time() > deadline:
+                raise AssertionError("the executor daemon did not register in time")
+            try:
+                info = _rest(rest, "/api/executors")
+            except OSError:
+                pass
+            time.sleep(0.5)
+        registered_s = time.time() - t0
+        if [(e["device_ordinal"], e["total_slots"]) for e in info] != [(0, 1)]:
+            raise AssertionError(f"the executor daemon registered as {info}")
+        queries = {}
+        for q, data_dir in ((6, big_dir), (4, q4_dir)):
+            ctx = SessionContext.remote(addr, BallistaConfig(QUERY_CONFIG))
+            register_tpch(ctx, data_dir)
+            with open(os.path.join(ROOT, "benchmarks", "tpch", "queries", f"q{q}.sql")) as f:
+                sql = f.read()
+            walls = []
+            for _ in range(2):  # cold, then warm
+                t1 = time.time()
+                tbl = ctx.sql(sql).collect()
+                walls.append(time.time() - t1)
+                compare_answers(tbl, answers[q][0], q)
+                job = _rest(rest, "/api/jobs")[-1]
+                stats = job_metrics_stats(ctx._ensure_remote().job_metrics(job["job_id"]))
+                if not any(st["device"] for st in stats.values()):
+                    raise AssertionError(f"q{q} daemons: no device stage ran")
+                for sid, st in stats.items():
+                    for kind, (nodes, passes, fallbacks) in st["device"].items():
+                        if fallbacks or not passes == nodes == st["tasks"]:
+                            raise AssertionError(
+                                f"q{q} daemons: stage {sid}: {nodes} {kind}, {passes} device "
+                                f"passes and {fallbacks} fallbacks in {st['tasks']} tasks")
+            queries[f"q{q}"] = {"cold_wall_s": walls[0], "warm_wall_s": walls[1],
+                                "device_nodes_per_stage": {
+                                    sid: st["device"] for sid, st in stats.items()
+                                    if st["device"]}}
+        rebuilt = sorted(set(os.listdir(runtime.compile_cache_dir())) - set(built))
+        if rebuilt:
+            raise AssertionError(f"the executor daemon built kernels again: {rebuilt}")
+        apps = _compute_apps()
+        if len(apps) != len(alone) + 1:
+            raise AssertionError(f"{len(apps)} CUDA contexts with both daemons up, this "
+                                 f"process alone held {len(alone)}: {apps}")
+        if pids_seen and (procs["executor"].pid not in [pid for pid, _ in apps]
+                          or procs["scheduler"].pid in [pid for pid, _ in apps]):
+            raise AssertionError(f"CUDA contexts {apps}: the executor daemon is pid "
+                                 f"{procs['executor'].pid}, the scheduler {procs['scheduler'].pid}")
+        kids = _children(procs["executor"].pid)  # its native Flight server, if it runs one
+        t1 = time.time()
+        procs["executor"].send_signal(signal.SIGTERM)
+        rc = procs["executor"].wait(timeout=DAEMON_DEADLINE_S)
+        drain_s = time.time() - t1
+        if rc != 0:
+            raise AssertionError(f"the executor daemon exited {rc} after SIGTERM")
+        if [k for k in kids if _running(k)]:
+            raise AssertionError(f"the executor daemon left its children {kids} running")
+        deadline = time.time() + 30
+        while len(after := _compute_apps()) != len(alone) and time.time() < deadline:
+            time.sleep(1)
+        if len(after) != len(alone) or procs["scheduler"].poll() is not None:
+            raise AssertionError(f"after the executor's exit, with the scheduler daemon "
+                                 f"{'up' if procs['scheduler'].poll() is None else 'gone'}, "
+                                 f"nvidia-smi lists {after}; this process alone held {alone}")
+        procs["scheduler"].send_signal(signal.SIGTERM)
+        sched_rc = procs["scheduler"].wait(timeout=DAEMON_DEADLINE_S)
+        ok = True
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        if not ok:
+            for name, path in logs.items():
+                with open(path, "rb") as f:
+                    log(f"{name} daemon stderr tail:\n" + f.read()[-3000:].decode(errors="replace"))
+        shutil.rmtree(work, ignore_errors=True)
+    return {"query": "remote_daemons", "registered_s": registered_s, "executors": info,
+            "queries": queries, "compute_apps": {"this_process": alone, "daemons_up": apps,
+                                                 "executor_gone": after},
+            "pids": {n: p.pid for n, p in procs.items()}, "pids_seen_by_nvidia_smi": pids_seen,
+            "executor_children": kids,
+            "sigterm_drain_s": drain_s,
+            "executor_rc": rc, "scheduler_rc": sched_rc}
 
 
 # ---------------------------------------------------------------- main
@@ -1909,9 +2377,20 @@ def main(argv=None) -> int:
                  + sort_family_phase(dev, busy_ok))
         log(f"kernel phase done at {time.time() - t0:.1f}s")
 
+        # the engine=cpu answers of phases 4-6, heaviest first: over the
+        # --q4-scale data while --scale's is generated, then over it; all
+        # of them in before the first timed run
+        wait_generate(small if q4_dir != big_dir else big, q4_dir, args.q4_scale)
+        ORACLE.submit([(_query_sql(q), q4_dir) for q, (which, _) in SORTED_QUERIES.items()
+                       if which == "small"] + [(_query_sql(4), q4_dir)])
         wait_generate(big, big_dir, args.scale)
-        wait_generate(small, q4_dir, args.q4_scale)
         log(f"data ready at {time.time() - t0:.1f}s")
+        ORACLE.submit([(_query_sql(q), big_dir) for q in (5, 3, 10, 13, 12, 1, 6)]
+                      + [(sql, big_dir) for sql, _ in SORT_QUERIES.values()])
+        q21_ref = q21_large_reference(big_dir)
+        log(f"q21 large's fused_xla reference done at {time.time() - t0:.1f}s")
+        ORACLE.wait()
+        log(f"engine=cpu answers ready at {time.time() - t0:.1f}s")
 
         # the main paths: the counts are set to 0 just before each query
         # and read just after it
@@ -1965,7 +2444,7 @@ def main(argv=None) -> int:
         # q21 at --scale: its supplier table (2^17 entries at SF10) through
         # hash_probe's shared-memory regimes; the counts are set to 0 inside,
         # just before its fused_pallas runs, and read just after them
-        r = q21_large_check(big_dir, args.scale, dev, busy_ok)
+        r = q21_large_check(big_dir, args.scale, dev, busy_ok, q21_ref)
         launches["q21_large"] = r["launches"]
         emit(r, args.scale)
         log(f"q21 at SF{scale_s} done at {time.time() - t0:.1f}s")
@@ -1983,11 +2462,12 @@ def main(argv=None) -> int:
         # the standalone mode: the launch counts are set to 0 just before
         # each query's runs and read just after them
         t8 = time.time()
-        for q, which, extra in STANDALONE_QUERIES:
+        for q, which, extra, kernel in STANDALONE_QUERIES:
             path_dir, scale = ((big_dir, args.scale) if which == "big"
                                else (q4_dir, args.q4_scale))
             cuda_kernels.reset_launches()
-            r = run_standalone_query(q, path_dir, extra, dev, busy_ok, recs[q], answers[q][0])
+            r = run_standalone_query(q, path_dir, extra, dev, busy_ok, recs[q], answers[q][0],
+                                     kernel=kernel)
             r["launches"] = launches[f"standalone_q{q}"] = dict(cuda_kernels.LAUNCHES)
             emit(r, scale)
             log(f"standalone q{q} done at {time.time() - t0:.1f}s")
@@ -1998,15 +2478,54 @@ def main(argv=None) -> int:
         r["launches"] = launches["standalone_q3_flight"] = dict(cuda_kernels.LAUNCHES)
         emit(r, args.scale)
         log(f"standalone phase took {time.time() - t8:.1f}s, done at {time.time() - t0:.1f}s")
+        # the remote mode: (a) in-process daemons over real sockets, the
+        # launch counts set to 0 just before each query's runs and read just
+        # after them; (b) a pull executor beside the push one, q3 over Flight
+        t9 = time.time()
+        _fresh_card()  # the cold runs fill their tables as phase 8's did
+        cluster = start_remote_cluster()
+        try:
+            for q, which, extra, kernel in REMOTE_QUERIES:
+                path_dir, scale = ((big_dir, args.scale) if which == "big"
+                                   else (q4_dir, args.q4_scale))
+                warm = 1 if q in REMOTE_SLOW and time.time() - t0 > LATE_S else 3
+                cuda_kernels.reset_launches()
+                r = run_remote_query(q, path_dir, extra, kernel, dev, busy_ok, recs[q],
+                                     answers[q][0], cluster, warm_runs=warm)
+                r["warm_runs"] = warm
+                r["launches"] = launches[f"remote_q{q}"] = dict(cuda_kernels.LAUNCHES)
+                emit(r, scale)
+                log(f"remote q{q} done at {time.time() - t0:.1f}s")
+        finally:
+            stop_remote_cluster(cluster[0], cluster[2])
+        cluster = start_remote_cluster(pull=True)
+        try:
+            cuda_kernels.reset_launches()
+            r = run_remote_query(3, big_dir, {}, None, dev, busy_ok, recs[3], answers[3][0],
+                                 cluster, force_remote=True, warm_runs=0)
+            r["launches"] = launches["remote_q3_flight"] = dict(cuda_kernels.LAUNCHES)
+            emit(r, args.scale)
+        finally:
+            stop_remote_cluster(cluster[0], cluster[2])
+        log(f"remote q3 over Flight done at {time.time() - t0:.1f}s")
+        # (c) real scheduler and executor daemons; this process's tables
+        # and builds are dropped first (the daemon holds its own context)
+        _fresh_card()
+        r = remote_daemons_check(big_dir, q4_dir, answers)
+        r["card"] = card
+        print(json.dumps(r), flush=True)
+        log(f"remote phase took {time.time() - t9:.1f}s, done at {time.time() - t0:.1f}s")
         path_of = {"masked_group_reduce": (4,), "hash_probe": (5, 21, "q21_large", "q5_grace"),
                    "dict_filter": (12,),
                    "segmented_sort": ("win_orders", "sort_customer"),
                    "topk_select": ("topk_partsupp",), "segmented_scan": ("win_orders",)}
         standalone = [k for k in launches if str(k).startswith("standalone_")]
+        remote = [k for k in launches if str(k).startswith("remote_")]
         for krec in krecs:
             krec["standalone_launches"] = sum(launches[q][krec["name"]] for q in standalone)
+            krec["remote_launches"] = sum(launches[q][krec["name"]] for q in remote)
             krec["launches"] = (sum(launches[q][krec["name"]] for q in path_of[krec["name"]])
-                                + krec["standalone_launches"])
+                                + krec["standalone_launches"] + krec["remote_launches"])
             if krec["launches"] < 1:
                 raise AssertionError(f"the main path launched {krec['name']} no time")
         log(f"path phase done at {time.time() - t0:.1f}s")
@@ -2014,6 +2533,7 @@ def main(argv=None) -> int:
         traceback.print_exc()
         return 1
     finally:
+        ORACLE.stop()
         for p in procs:
             if p is not None and p.poll() is None:
                 p.kill()

@@ -3,9 +3,12 @@
 The port stands alone: no file of it, nor chip_smoke.py, imports jax,
 jaxlib or any module of the JAX package; every `ballista_tpu_torch`
 import names a module the port has; running a query through the port,
-in local mode and in the standalone mode (scheduler, executors, shuffle
-files, Flight), loads nothing of the JAX package; and without CUDA the device engine
-raises unless the CPU was asked for.
+in local mode, in the standalone mode (scheduler, executors, shuffle
+files, Flight) and in the remote mode (daemons over gRPC), loads nothing
+of the JAX package; importing the daemons and the client makes no
+torch.cuda call (an executor daemon binds its card before its first
+one); and without CUDA the device engine raises unless the CPU was asked
+for.
 """
 
 import ast
@@ -94,6 +97,21 @@ q3 = open({os.path.join(ROOT, "benchmarks", "tpch", "queries", "q3.sql")!r}).rea
 assert sa.sql(q3).collect().num_rows > 0
 assert sa._cluster.flight_server.stats["bytes_served"] > 0
 sa.shutdown()
+# the remote mode: scheduler and executor daemons over gRPC on 127.0.0.1
+from ballista_tpu_torch.executor.executor_process import ExecutorProcess
+from ballista_tpu_torch.scheduler.process import SchedulerProcess
+sched = SchedulerProcess(bind_host="127.0.0.1", port=0, rest_port=-1, flight_proxy_port=-1)
+sched.start()
+ex = ExecutorProcess(f"127.0.0.1:{{sched.port}}", bind_host="127.0.0.1",
+                     external_host="127.0.0.1", engine="tpu", device_ordinal=0,
+                     flight_impl="python")
+ex.start()
+rc = SessionContext.remote(f"127.0.0.1:{{sched.port}}", BallistaConfig({{
+    "ballista.executor.engine": "tpu", "ballista.tpu.min.rows": 0}}))
+register_tpch(rc, {tpch_dir!r})
+assert rc.sql(sql).collect().num_rows > 0
+ex.shutdown()
+sched.shutdown()
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "ballista_tpu") or m.startswith(("jax.", "jaxlib.", "ballista_tpu.")))
 print("LOADED", bad)
@@ -103,6 +121,35 @@ print("LOADED", bad)
                          timeout=300, env=env, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "LOADED []" in out.stdout, out.stdout[-2000:]
+
+
+def test_daemon_and_client_imports_make_no_cuda_call():
+    # a torch.cuda query before bind_process_ordinal would fix the process's
+    # visible cards (CUDA reads CUDA_VISIBLE_DEVICES once), and the
+    # scheduler must create no CUDA context: importing the daemons, the
+    # remote client and the engine calls nothing of torch.cuda
+    code = f"""
+import sys
+sys.path.insert(0, {ROOT!r})
+import torch
+calls = []
+for name in ("is_available", "device_count", "init", "_lazy_init", "current_device",
+             "get_device_properties", "get_device_name", "mem_get_info", "synchronize"):
+    setattr(torch.cuda, name, lambda *a, _n=name, **k: calls.append(_n))
+import ballista_tpu_torch.executor.executor_process
+import ballista_tpu_torch.scheduler.process
+import ballista_tpu_torch.client.remote
+import ballista_tpu_torch.client.context
+import ballista_tpu_torch.engine.cuda_engine
+import ballista_tpu_torch.ops.cuda.stage_compiler
+import ballista_tpu_torch.ops.cuda.cuda_kernels
+print("CALLS", calls)
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, env=env, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "CALLS []" in out.stdout, out.stdout[-2000:]
 
 
 def test_runtime_raises_without_cuda_unless_cpu_requested(monkeypatch):

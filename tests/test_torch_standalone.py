@@ -281,16 +281,22 @@ def test_mesh_refused_at_planning(tpch_dir):
 
 
 def test_modes_not_ported_raise(tpch_dir):
+    # the remote mode is ported; what still raises, in the standalone and
+    # the remote mode alike, is the serving surface through the scheduler
+    # (ROADMAP A9): appends and prepared statements. Neither call reaches
+    # the scheduler, so the remote context needs no running one here.
     from ballista_tpu_torch.client.context import SessionContext
 
-    with pytest.raises(NotImplementedError, match="remote mode .* not ported"):
-        SessionContext.remote("localhost:50050")
-    with pytest.raises(NotImplementedError, match="'remote' mode is not ported"):
-        SessionContext(mode="remote")
+    remote = SessionContext.remote("localhost:50050")
+    assert remote.mode == "remote" and remote._remote is None
     ctx = _ctx(tpch_dir)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            ctx.append("nation", pa.table({"n_nationkey": [99]}))
+        for c in (ctx, remote):
+            with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+                c.append("nation", pa.table({"n_nationkey": [99]}))
+            with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+                c.prepare("select n_name from nation where n_nationkey = 1")
+        assert remote._remote is None
     finally:
         ctx.shutdown()
 
