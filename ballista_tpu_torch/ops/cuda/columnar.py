@@ -64,6 +64,12 @@ def next_bucket(n: int, buckets: list[int]) -> int:
     return ((n + top - 1) // top) * top
 
 
+def repeated_names(names: list[str]) -> list[str]:
+    """The names that occur more than once (a.x and b.x are both "x"): an
+    encode that finds its columns by name must decline on them."""
+    return sorted({n for n in names if names.count(n) > 1})
+
+
 def _is_fixed_point(vals: np.ndarray, scale: int = 2) -> bool:
     if len(vals) == 0:
         return True

@@ -42,7 +42,7 @@ import torch
 
 from ballista_tpu_torch.config import TPU_MAX_DEVICE_BYTES, TPU_MIN_ROWS, BallistaConfig
 from ballista_tpu_torch.ops.cuda import hbm, runtime
-from ballista_tpu_torch.ops.cuda.columnar import encode_column, next_bucket
+from ballista_tpu_torch.ops.cuda.columnar import encode_column, next_bucket, repeated_names
 from ballista_tpu_torch.ops.cuda.kernels import DevVal, Lowering, Unsupported, lower_expr, take, true_mask
 from ballista_tpu_torch.plan.physical import (
     CoalesceBatchesExec,
@@ -262,6 +262,7 @@ class TpuFinalStageExec(ExecutionPlan):
         self.buckets = config.shape_buckets()
         self.tpu_count = 0
         self.fallback_count = 0
+        self.decline_reason: str | None = None  # the last Unsupported's message
         self._results: dict[int, list[pa.RecordBatch]] | None = None
         self._results_lock = threading.Lock()
         self._device_ok = False
@@ -315,6 +316,7 @@ class TpuFinalStageExec(ExecutionPlan):
                     # only a declared decline falls back; a build, launch or
                     # device error propagates out of collect()
                     log.info("device final-stage fallback (%s): %s", e, self.agg.node_str())
+                    self.decline_reason = str(e)
                     self._results = {}
             if partition not in self._results and self._device_ok:
                 # results were already consumed (a consumer re-executed this
@@ -488,6 +490,11 @@ class TpuFinalStageExec(ExecutionPlan):
         device = runtime.device(ctx.device_ordinal)
 
         full = pa.concat_tables(tables)
+        dup = repeated_names(full.column_names)
+        if dup:
+            # the encode below looks columns up by name (the reference's
+            # does too, and its error makes it fall back): decline instead
+            raise Unsupported(f"duplicate input field names {dup}")
         N = next_bucket(max(max(part_rows), 1), self.buckets)
         P = len(part_rows)
 

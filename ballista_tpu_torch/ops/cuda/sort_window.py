@@ -398,7 +398,9 @@ def window_static_ok(window_exprs: list, schema: DFSchema) -> bool:
 
 def _device_sort(tbl: pa.Table, df_schema: DFSchema, keys: list,
                  fetch: Optional[int], config: BallistaConfig,
-                 device: torch.device) -> pa.Table:
+                 device: torch.device, decisions: list) -> pa.Table:
+    """The ordered (and cut) table; appends (mode, reason, rows) of the
+    cost model's decision to `decisions`."""
     from ballista_tpu_torch.ops.cuda import fusion
     from ballista_tpu_torch.ops.cuda.stage_compiler import RUN_STATS
 
@@ -421,6 +423,7 @@ def _device_sort(tbl: pa.Table, df_schema: DFSchema, keys: list,
     dec = cm.choose_sort(est)
     RUN_STATS.set("fusion_mode", dec.mode)
     RUN_STATS.set("fusion_reason", dec.reason)
+    decisions.append((dec.mode, dec.reason, n))
 
     up = _Uploads(device)
     t0 = time.time()
@@ -459,6 +462,8 @@ class TpuSortStageExec(ExecutionPlan):
         self.config = config
         self.tpu_count = 0
         self.fallback_count = 0
+        # (fusion mode, reason, rows) of every device sort this node ran
+        self.decisions: list = []
 
     def children(self) -> list[ExecutionPlan]:
         return [self.input]
@@ -487,7 +492,7 @@ class TpuSortStageExec(ExecutionPlan):
         device = runtime.device(ctx.device_ordinal)
         try:
             out = _device_sort(tbl, self.df_schema, self.keys, self.fetch,
-                               self.config, device)
+                               self.config, device, self.decisions)
             self.tpu_count += 1
         except Unsupported as e:
             # the declared ladder only: a build, launch or device error
@@ -516,7 +521,7 @@ def _device_frame(batch: pa.RecordBatch, w: WindowFunction, schema: DFSchema,
                   config: BallistaConfig, window_funcs: int, up: "_Uploads"):
     """The oracle's _Frame, with the sort permutation computed on device.
     Boundary flags reuse the oracle's `_changes` (nulls equal, NaN splits
-    peers) so peer semantics cannot drift. Returns (_Frame, mode)."""
+    peers) so peer semantics cannot drift. Returns (_Frame, decision)."""
     from ballista_tpu_torch.ops.cpu.window import _Frame, _changes, _first_only
     from ballista_tpu_torch.ops.cuda import fusion
     from ballista_tpu_torch.ops.cuda.stage_compiler import RUN_STATS
@@ -557,7 +562,7 @@ def _device_frame(batch: pa.RecordBatch, w: WindowFunction, schema: DFSchema,
     counts = ends - starts + 1 if len(starts) else np.array([], np.int64)
     seg_end = np.repeat(ends, counts) if len(starts) else np.zeros(n, np.int64)
     _count("window_partitions", int(len(starts)))
-    return _Frame(idx, inv, new_part, new_peer, seg_start, seg_end), dec.mode
+    return _Frame(idx, inv, new_part, new_peer, seg_start, seg_end), dec
 
 
 def _seg_scan(vals: np.ndarray, boundary: np.ndarray, func: str, mode: str,
@@ -678,7 +683,9 @@ def _emit_scan_agg(batch, w, schema, fr, mode, boundary, up, out_type,
 
 def _device_windows(batch: pa.RecordBatch, window_exprs: list,
                     schema: DFSchema, config: BallistaConfig,
-                    device: torch.device) -> list[pa.Array]:
+                    device: torch.device, decisions: list) -> list[pa.Array]:
+    """Every window expression's column; appends (mode, reason, rows) of
+    each frame's decision to `decisions`."""
     n = batch.num_rows
     if n < max(int(config.get(TPU_MIN_ROWS)), 1):
         raise Unsupported(f"only {n} rows (< tpu min)")
@@ -696,10 +703,11 @@ def _device_windows(batch: pa.RecordBatch, window_exprs: list,
         key = (tuple(str(e) for e in w.partition_by),
                tuple(str(k) for k in w.order_by))
         if key not in frames:
-            frames[key] = _device_frame(batch, w, schema, config,
-                                        groups[key], up)
-        fr, mode = frames[key]
-        out.append(_device_compute_one(batch, w, schema, fr, mode, up))
+            frames[key] = fr, dec = _device_frame(batch, w, schema, config,
+                                                  groups[key], up)
+            decisions.append((dec.mode, dec.reason, n))
+        fr, dec = frames[key]
+        out.append(_device_compute_one(batch, w, schema, fr, dec.mode, up))
     from ballista_tpu_torch.ops.cuda.stage_compiler import RUN_STATS
 
     RUN_STATS.set("device_bytes", up.bytes)
@@ -721,6 +729,8 @@ class TpuWindowStageExec(ExecutionPlan):
         self.config = config
         self.tpu_count = 0
         self.fallback_count = 0
+        # (fusion mode, reason, rows) of every device frame this node sorted
+        self.decisions: list = []
 
     def children(self) -> list[ExecutionPlan]:
         return [self.input]
@@ -756,7 +766,8 @@ class TpuWindowStageExec(ExecutionPlan):
         device = runtime.device(ctx.device_ordinal)
         try:
             wins = _device_windows(batch, self.window_exprs,
-                                   self.input.df_schema, self.config, device)
+                                   self.input.df_schema, self.config, device,
+                                   self.decisions)
             self.tpu_count += 1
         except Unsupported as e:
             # the declared ladder only: a build, launch or device error

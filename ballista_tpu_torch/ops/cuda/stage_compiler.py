@@ -785,7 +785,7 @@ class TpuStageExec(ExecutionPlan):
         key falls in that secondary-hash sub-bucket (the grace split).
         Sub-builds carry their bucket in the cache key: a sub-build and the
         whole build never alias."""
-        from ballista_tpu_torch.ops.cuda.columnar import encode_column
+        from ballista_tpu_torch.ops.cuda.columnar import encode_column, repeated_names
         from ballista_tpu_torch.ops.phys_expr import bind_expr, evaluate_to_array
 
         cache_key = (table_key, self.fingerprint, jidx, str(device), grace)
@@ -912,6 +912,11 @@ class TpuStageExec(ExecutionPlan):
             # columns with a None payload slot (lowering raises only if the
             # filter uses one)
             tolerate = join.join_type in ("right_semi", "right_anti")
+            repeated = repeated_names(batch.schema.names)
+            if repeated:
+                # the encode below finds each payload by name, and a repeated
+                # name would give every copy the last column's values
+                raise Unsupported(f"duplicate build field names {repeated}")
             for name in batch.schema.names:
                 dc = encode_column(batch.column(batch.schema.get_field_index(name)))
                 if dc is None:
@@ -1258,7 +1263,7 @@ class TpuStageExec(ExecutionPlan):
                     and bt.dup == 1
                     and int(bt.keys.shape[0]) <= pallas_probe_max
                 )
-                finder = _mk_join_finder(off, probe_fns, bt, lane_cells[jidx], memo,
+                finder = _mk_join_finder(off, probe_fns, bt, lane_cells[:jidx + 1], memo,
                                          pallas=probe_pallas)
                 pv_idx = bt.pay_valid_flat_idx()
                 if op.join_type in ("right_semi", "right_anti"):
@@ -1283,7 +1288,8 @@ class TpuStageExec(ExecutionPlan):
                         saved_fns, saved_meta = list(ctx.env_fns), list(ctx.env_meta)
                         combined_schema = op.left.df_schema.merge(cur_schema)
                         for d in range(bt.dup):
-                            finder_d = _mk_join_finder(off, probe_fns, bt, {"d": d}, memo)
+                            finder_d = _mk_join_finder(off, probe_fns, bt,
+                                                       lane_cells[:jidx] + [{"d": d}], memo)
                             gfns, gmeta = [], []
                             for ci, pp in enumerate(bt.pay_pos):
                                 if pp is None:
@@ -1319,7 +1325,8 @@ class TpuStageExec(ExecutionPlan):
                 if jidx == mult_jidx:
                     # aggregate-through-join: ONE count gather replaces all
                     # dup match lanes; build columns are never materialized
-                    counter = _mk_join_counter(off, probe_fns, bt, memo)
+                    counter = _mk_join_counter(off, probe_fns, bt, lane_cells[:jidx + 1],
+                                               memo)
                     if op.join_type == "inner":
                         filter_fns.append(
                             lambda cols, luts, _c=counter:
@@ -2279,13 +2286,13 @@ def _memoized(memo: dict, key, cols, compute):
     return hit[1]
 
 
-def _mk_join_finder(off: int, probe_fns, bt: BuildTable, cell: dict, memo: dict,
+def _mk_join_finder(off: int, probe_fns, bt: BuildTable, cells: list, memo: dict,
                     pallas: bool = False):
     """Closure computing (clamped build index, matched mask) for one join.
 
     'direct' mode, unique keys: the build shipped a dense key→row int32
     table — ONE gather per probe, matched iff row >= 0. Repeated keys
-    (dup > 1): the lo/cnt tables; the probe's match lane d (`cell["d"]`,
+    (dup > 1): the lo/cnt tables; the probe's match lane d (`cells[-1]["d"]`,
     set by the lane loop before each lane runs) selects row lo+d, matched
     iff d < cnt. 'sorted' mode: a binary search over the sorted keys (left
     for unique keys, left and right for expansion lanes), with the
@@ -2296,9 +2303,11 @@ def _mk_join_finder(off: int, probe_fns, bt: BuildTable, cell: dict, memo: dict,
     the table in shared memory up to the engine's cap
     (`cuda_kernels.hash_probe_regime` picks where it sits). Every
     build-column gather closure re-invokes the finder, so the result is
-    memoized per stage run and lane, keyed by the
-    identity of the run's `cols` list and `d`: one lookup (one kernel
-    launch) per join per lane."""
+    memoized per stage run, keyed by the identity of the run's `cols` list
+    and the lanes of every join up to and including this one (`cells`):
+    a probe key gathered from an earlier expansion join differs per lane
+    of that join, so one lookup (one kernel launch) per join per lane
+    combination of the joins it depends on, and no more."""
     shifts = bt.shifts
     has_cnt = bt.cnt is not None
     b_static = bt.padded_rows()
@@ -2335,8 +2344,9 @@ def _mk_join_finder(off: int, probe_fns, bt: BuildTable, cell: dict, memo: dict,
         return idxc, DevVal("bool", matched)
 
     def run(cols, luts):
-        d = cell["d"]
-        return _memoized(memo, (token, id(cols), d), cols, lambda: find(cols, luts, d))
+        lanes = tuple(c["d"] for c in cells)
+        return _memoized(memo, (token, id(cols), lanes), cols,
+                         lambda: find(cols, luts, lanes[-1]))
 
     return run
 
@@ -2412,12 +2422,13 @@ def _mult_shape_check(partial_agg, ops, join) -> dict | None:
     return out
 
 
-def _mk_join_counter(off: int, probe_fns, bt: BuildTable, memo: dict):
+def _mk_join_counter(off: int, probe_fns, bt: BuildTable, cells: list, memo: dict):
     """Closure computing each probe row's MATCH COUNT against the build —
     the aggregate-through-join weight. Where every build-column use in the
     stage is multiplicity-shaped (count(col), count(*), probe-side sums),
     gathering the count replaces dup-lane unrolling entirely: one gather
-    instead of dup lane passes, and no MAX_JOIN_DUP ceiling."""
+    instead of dup lane passes, and no MAX_JOIN_DUP ceiling. Memoized as
+    the finder is, under the lanes of the joins up to this one (`cells`)."""
     shifts = bt.shifts
     has_cnt = bt.cnt is not None
     sorted_mode = bt.mode == "sorted"
@@ -2439,7 +2450,8 @@ def _mk_join_counter(off: int, probe_fns, bt: BuildTable, memo: dict):
         return (in_range & (row >= 0)).to(torch.int32)
 
     def run(cols, luts):
-        return _memoized(memo, (token, id(cols)), cols, lambda: count(cols, luts))
+        lanes = tuple(c["d"] for c in cells)
+        return _memoized(memo, (token, id(cols), lanes), cols, lambda: count(cols, luts))
 
     return run
 

@@ -268,10 +268,13 @@ def _stat_val(v):
 
 
 def _align_batch(batch: pa.RecordBatch, schema: pa.Schema) -> pa.RecordBatch:
-    """Reorder/cast columns read from parquet to the node's output schema."""
+    """Reorder/cast columns read from parquet to the node's output schema.
+    Where the names already line up, columns are taken by position: a name
+    may repeat (a.x and b.x), and a lookup by name finds none of them."""
+    in_order = batch.schema.names == schema.names
     cols = []
-    for f in schema:
-        arr = batch.column(batch.schema.get_field_index(f.name))
+    for i, f in enumerate(schema):
+        arr = batch.column(i if in_order else batch.schema.get_field_index(f.name))
         if arr.type != f.type:
             arr = arr.cast(f.type)
         cols.append(arr)
