@@ -112,8 +112,8 @@ def maybe_compile_tpu(physical: ExecutionPlan, config: BallistaConfig) -> Execut
             # standalone ORDER BY [LIMIT] (final-stage shapes were claimed
             # above): device permutation, host take — cost model picks the
             # rung per shape at run time
-            return TpuSortStageExec(walk(node.input), node.keys, node.fetch,
-                                    config)
+            return node._keep_stamp(TpuSortStageExec(walk(node.input), node.keys,
+                                                     node.fetch, config))
         if (sort_on and isinstance(node, WindowExec)
                 and window_static_ok(node.window_exprs, node.input.df_schema)):
             return TpuWindowStageExec(walk(node.input), node.window_exprs,

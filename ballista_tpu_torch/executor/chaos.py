@@ -39,7 +39,7 @@ bounds it to the first armed request per socket) to the daemon, whose
 execute handler kills itself uncleanly (daemon_crash → os._exit(137)) or
 wedges until the execute watchdog fires (daemon_hang → diagnosed exit 4
 with a <socket>.crash.json post-mortem). Deterministic fuel for the
-crash-recovery / quarantine ladder in ops/tpu/daemon_route.py.
+crash-recovery / quarantine ladder in ops/cuda/daemon_route.py.
 
 Mode 'disk_full' faults the STORAGE path and never wraps the plan: the
 shuffle writer's commit points and the spill pool's disk demotions poll

@@ -133,11 +133,11 @@ class Executor:
         # direct-dispatch lease enforcement: the scheduler pushes grants/
         # revocations here; admit() gates every scheduler-less task. The
         # generation probe fences leases against a silently restarted
-        # device daemon. The daemon is not ported yet (ROADMAP A7), so no
-        # executor is ever attached to one and the probe reads "", as the
-        # reference's attached_generation does with no daemon attached
+        # device daemon (the client module makes no CUDA call: it only
+        # reads its attach cache; "" when not attached)
+        from ballista_tpu_torch.device_daemon import client as _dclient
         from ballista_tpu_torch.serving.lease import LeaseTable
-        self.lease_table = LeaseTable(generation_probe=lambda: "")
+        self.lease_table = LeaseTable(generation_probe=_dclient.attached_generation)
         self._warned_tpu_downgrade = False
         # process-isolated tasks currently inflight (spill budget is split
         # across them; see process_worker.run_task_in_subprocess)

@@ -360,7 +360,7 @@ class ExecutorProcess:
                     "window_partitions", "sort_full_materializations",
                     "delta_fill_rows",
                     "daemon_attached", "init_platform_probe_s",
-                    "init_jax_devices_s", "init_first_compile_s"):
+                    "init_cuda_devices_s", "init_first_launch_s"):
             if key in stats:
                 out.append((f"tpu_{key}", float(stats[key])))
         if "hbm_plan" in stats:
@@ -391,7 +391,7 @@ class ExecutorProcess:
         if "daemon_queue_depth" in stats:
             out.append(("daemon_queue_depth",
                         float(stats["daemon_queue_depth"])))
-        # daemon failure-domain recovery counters (ops/tpu/daemon_route.py
+        # daemon failure-domain recovery counters (ops/cuda/daemon_route.py
         # mirrors the client's process-lifetime totals into RUN_STATS);
         # RUN_STATS names, no tpu_ prefix — they count daemon incarnations
         # and quarantine events, not this executor's device work

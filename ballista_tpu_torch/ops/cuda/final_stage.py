@@ -307,6 +307,16 @@ class TpuFinalStageExec(ExecutionPlan):
     def _run(self, partition: int, ctx: TaskContext) -> list[pa.RecordBatch]:
         with self._results_lock:
             if self._results is None:
+                # ship the whole final-merge stage to the warm daemon first;
+                # the route's failure domain (crash retry, poison
+                # quarantine) demotes to the local attempt below with None
+                routed = self._daemon_run_all(ctx)
+                if routed is not None:
+                    self._results = routed
+                    self.tpu_count += 1
+                    self._device_ok = True
+                    self._mat_input = None
+            if self._results is None:
                 try:
                     self._results = self._device_run(ctx)
                     self.tpu_count += 1
@@ -339,6 +349,21 @@ class TpuFinalStageExec(ExecutionPlan):
                 self._note_served_locked(partition)
                 return out
         return self._fallback(partition, ctx)
+
+    def _daemon_run_all(self, ctx: TaskContext):
+        """Route the final-merge stage through the device daemon.
+        unwrap_device_stages rebuilds the raw sort/post_ops/agg subtree from
+        this wrapper (re-adding the CoalescePartitionsExec the matcher
+        consumed), so the daemon re-derives the identical stage."""
+        from ballista_tpu_torch.ops.cuda import daemon_route
+
+        return daemon_route.run_via_daemon(
+            self.config,
+            plan_builder=lambda: self,
+            partitions=list(range(self.output_partition_count())),
+            tag=daemon_route.stage_tag("final", self.fingerprint),
+            fingerprint=self.fingerprint,
+            est_bytes=int(getattr(self, "hbm_observed_input_bytes", 0) or 0))
 
     def _device_run(self, ctx: TaskContext) -> dict[int, list[pa.RecordBatch]]:
         """_tpu_run_all with the final stage's out-of-memory rung: spill
@@ -472,10 +497,15 @@ class TpuFinalStageExec(ExecutionPlan):
             child = child.input
             bypass = True
         P_in = child.output_partition_count()
+        # the session quota is thread-local (one handler thread per request
+        # in the daemon): re-scope it on the pool threads, or a daemon-routed
+        # final stage would run its inner partials with no ceiling
+        quota = hbm.active_session_quota()
 
         def read(p):
-            return _concat([b for b in child.execute(p, ctx) if b.num_rows],
-                           child.schema())
+            with hbm.session_quota(quota):
+                return _concat([b for b in child.execute(p, ctx) if b.num_rows],
+                               child.schema())
 
         with _fut.ThreadPoolExecutor(max_workers=min(max(P_in, 1), 8)) as pool:
             tables = list(pool.map(read, range(P_in)))

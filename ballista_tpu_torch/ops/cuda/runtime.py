@@ -151,3 +151,20 @@ def compile_cache_stats() -> dict:
         req, hits = _cc_counts["requests"], _cc_counts["hits"]
     return {"dir": compile_cache_dir(), "requests": req, "hits": hits,
             "misses": req - hits}
+
+
+def process_rusage() -> dict:
+    """Resource-usage snapshot of THIS process for post-mortem artifacts
+    (the device daemon's crash report): peak RSS and CPU split. Makes no
+    CUDA call and never raises: diagnostics must not add failure modes."""
+    try:
+        import resource
+
+        ru = resource.getrusage(resource.RUSAGE_SELF)
+        return {
+            "max_rss_kb": int(ru.ru_maxrss),
+            "user_s": round(ru.ru_utime, 3),
+            "system_s": round(ru.ru_stime, 3),
+        }
+    except Exception:  # noqa: BLE001 — platform without getrusage
+        return {}

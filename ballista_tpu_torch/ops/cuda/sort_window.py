@@ -469,7 +469,7 @@ class TpuSortStageExec(ExecutionPlan):
         return [self.input]
 
     def with_children(self, c):
-        return TpuSortStageExec(c[0], self.keys, self.fetch, self.config)
+        return self._keep_stamp(TpuSortStageExec(c[0], self.keys, self.fetch, self.config))
 
     def output_partition_count(self) -> int:
         return self.input.output_partition_count()

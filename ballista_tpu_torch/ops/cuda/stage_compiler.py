@@ -42,10 +42,16 @@ another (_grace_run); a device out-of-memory error spills every resident
 table and retries the stage once (_dispatch_all).
 
 Any other shape raises `Unsupported` and the subtree re-runs on the CPU
-engine, counted in `fallback_count`: a group capacity overflow, the mesh,
-the daemon, a stage past the grace depth cap, a second out-of-memory
-error. Only `Unsupported` falls back: a kernel build or launch error, or a
-missing card, raises out of the query.
+engine, counted in `fallback_count`: a group capacity overflow, a stage
+past the grace depth cap, a second out-of-memory error. Only `Unsupported`
+falls back: a kernel build or launch error, or a missing card, raises out
+of the query.
+
+Warm device daemon (device_daemon/, ops/cuda/daemon_route.py): a session
+with ballista.tpu.daemon.enabled ships each stage's raw subtree to the
+daemon process that owns the card first (_daemon_run_all); the daemon
+runs it through the same maybe_compile_tpu. Where no daemon answers, the
+stage runs here, with the reason in RUN_STATS daemon_mode_reason.
 """
 
 from __future__ import annotations
@@ -145,7 +151,16 @@ class RunStats:
     cumulative hbm_spill_bytes, hbm_spill_events, hbm_reupload_events with
     hbm_oom_retries (the out-of-memory retries so far); the sorted
     aggregation adds sort_s (device seconds of its sort), live_rows (rows
-    sorted), n_seg (groups) and seg_capacity (C)."""
+    sorted), n_seg (groups) and seg_capacity (C). Warm-daemon routing
+    (ops/cuda/daemon_route.py): daemon_mode ("attached" when the stage ran
+    in the device daemon, "in_process" when the session opted in but it
+    ran here) and daemon_mode_reason; daemon_attached, daemon_sessions,
+    daemon_queue_depth and the daemon's init phase seconds
+    (init_platform_probe_s, init_cuda_devices_s, init_first_launch_s);
+    daemon_failover / daemon_failover_reason for a crash recovered by a
+    respawn or a quarantined stage, and the process-lifetime counters
+    daemon_restarts, daemon_crashes_detected, watchdog_kills and
+    poisoned_stages."""
 
     _MAX_STAGES = 32
 
@@ -329,6 +344,10 @@ class DeviceTableCache:
         self._cache: "collections.OrderedDict[tuple, DeviceTable]" = collections.OrderedDict()
         self._lock = threading.Lock()
         self._inflight: dict[tuple, threading.Event] = {}
+        # lifetime counts: lookups served by a resident table, and fills
+        # (read + encode + upload, or a restore from the spill pool)
+        self.hits = 0
+        self.fills = 0
 
     def table_key(self, scan, device) -> tuple:
         # the device in the key: tables committed to one card never serve
@@ -343,6 +362,7 @@ class DeviceTableCache:
             hit = self._cache.get(key)
             if hit is not None:
                 self._cache.move_to_end(key)
+                self.hits += 1
                 return hit
             ev = self._inflight.get(key)
             owner = ev is None
@@ -367,6 +387,8 @@ class DeviceTableCache:
             else:
                 dt = self._load(scan, buckets, ctx, device, fill_threads=fill_threads,
                                 stats=stats)
+            with self._lock:
+                self.fills += 1
             RUN_STATS.set("fill_s", round(time.time() - t0, 3), rec=stats)
             RUN_STATS.set("device_bytes", dt.nbytes, rec=stats)
             victims = []
@@ -433,6 +455,10 @@ class DeviceTableCache:
     def clear(self) -> None:
         with self._lock:
             self._cache.clear()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._cache)
 
     def key_of(self, scan) -> tuple:
         if isinstance(scan, ParquetScanExec):
@@ -592,11 +618,19 @@ DEVICE_CACHE = DeviceTableCache()
 
 def clear_device_caches() -> None:
     """Release every module-level device cache: resident tables, string
-    LUTs, join build tables and the tables spilled to the host pool."""
+    LUTs, join build tables and the tables spilled to the host pool.
+
+    When this process is attached to a device daemon, the clear is also
+    forwarded there: the state an attached process uses is daemon-resident.
+    The forwarding is best-effort (a dead daemon has nothing resident) and
+    a no-op inside the daemon itself."""
     DEVICE_CACHE.clear()
     _LUT_CACHE.clear()
     _BUILD_CACHE.clear()
     hbm.SPILL_POOL.clear()
+    from ballista_tpu_torch.device_daemon import client as daemon_client
+
+    daemon_client.clear_attached_caches()
 
 
 class TpuStageExec(ExecutionPlan):
@@ -710,13 +744,17 @@ class TpuStageExec(ExecutionPlan):
         return hbm.SPILL_POOL if bool(self.config.get(TPU_HBM_SPILL_ENABLED)) else None
 
     def _dispatch_all(self, ctx: TaskContext) -> dict[int, list[pa.RecordBatch]]:
-        """One whole-stage dispatch on the task's card (or the CPU when the
+        """One whole-stage dispatch: the warm device daemon first when the
+        session opted in, else on the task's card (or the CPU when the
         caller asked for it), with the out-of-memory rung: the estimate said
         the stage fits and the card disagreed. Spill every resident table
         (their fills are kept in the host pool), drop the LUT and build
         caches, hint the planner to pre-plan grace for this stage, and retry
         ONCE; a second out-of-memory error demotes the stage to the CPU
         engine. Any other error propagates."""
+        out = self._daemon_run_all(ctx)
+        if out is not None:
+            return out
         tag = f"stage_{zlib.crc32(self.fingerprint.encode()):08x}"
         with RUN_STATS.run(tag) as rec:
             try:
@@ -743,9 +781,29 @@ class TpuStageExec(ExecutionPlan):
                         f"device OOM persisted after spill+retry: {e2}") from e2
                 raise
 
+    def _daemon_run_all(self, ctx: TaskContext) -> dict[int, list[pa.RecordBatch]] | None:
+        """Ship this stage to the device daemon: the RAW rebuilt subtree
+        (the chain _fallback re-executes) goes over the socket and the
+        daemon runs it through the same maybe_compile_tpu entry, so an
+        attached result is byte-identical to an in-process one. The failure
+        domain (derived deadline, crash detection, respawn-and-retry,
+        poison quarantine) lives in daemon_route.run_via_daemon; None means
+        'run here', with the reason in RUN_STATS daemon_mode_reason."""
+        from ballista_tpu_torch.ops.cuda import daemon_route
+
+        return daemon_route.run_via_daemon(
+            self.config,
+            plan_builder=lambda: self.partial_agg.with_children([self._raw_chain()]),
+            partitions=list(range(self.scan.output_partition_count())),
+            tag=daemon_route.stage_tag("stage", self.fingerprint),
+            fingerprint=self.fingerprint,
+            emit_pid=self.emit_pid,
+            est_bytes=int(getattr(self, "hbm_observed_input_bytes", 0) or 0))
+
     def _raw_chain(self) -> ExecutionPlan:
         """The original pre-aggregation subtree this wrapper replaced,
-        rebuilt from its pieces: what _fallback re-executes on the host."""
+        rebuilt from its pieces: what _fallback re-executes on the host and
+        what the daemon client serializes over the socket."""
         from ballista_tpu_torch.plan.physical import HashJoinExec
 
         node: ExecutionPlan = self.scan

@@ -94,6 +94,19 @@ class ExecutionPlan:
     def output_partition_count(self) -> int:
         return self.children()[0].output_partition_count()
 
+    def _keep_stamp(self, node: "ExecutionPlan") -> "ExecutionPlan":
+        """A node whose schema is its input's, rebuilt over a new child,
+        keeps this node's schema when the fields line up by name and type.
+        The planner implements a SubqueryAlias by re-stamping the child's
+        schema with the alias qualifier; rebuilding from the input alone
+        would drop the qualifier, and `alias.column` would no longer bind
+        above it (ROADMAP C13)."""
+        old, new = self.df_schema, node.df_schema
+        if old is not new and len(old) == len(new) and all(
+                a.name == b.name and a.dtype == b.dtype for a, b in zip(old, new)):
+            node.df_schema = old
+        return node
+
     def execute(self, partition: int, ctx: TaskContext) -> Iterator[pa.RecordBatch]:
         raise NotImplementedError
 
@@ -349,7 +362,7 @@ class FilterExec(ExecutionPlan):
         return [self.input]
 
     def with_children(self, c):
-        return FilterExec(c[0], self.predicate)
+        return self._keep_stamp(FilterExec(c[0], self.predicate))
 
     def node_str(self) -> str:
         return f"FilterExec: {self.predicate}"
@@ -407,7 +420,7 @@ class CoalesceBatchesExec(ExecutionPlan):
         return [self.input]
 
     def with_children(self, c):
-        return CoalesceBatchesExec(c[0], self.target_rows)
+        return self._keep_stamp(CoalesceBatchesExec(c[0], self.target_rows))
 
     def execute(self, partition, ctx):
         return self._timed(self._run(partition, ctx))
@@ -1066,7 +1079,7 @@ class SortExec(ExecutionPlan):
         return [self.input]
 
     def with_children(self, c):
-        return SortExec(c[0], self.keys, self.fetch)
+        return self._keep_stamp(SortExec(c[0], self.keys, self.fetch))
 
     def node_str(self) -> str:
         k = ", ".join(str(x) for x in self.keys)
@@ -1104,7 +1117,7 @@ class SortPreservingMergeExec(ExecutionPlan):
         return [self.input]
 
     def with_children(self, c):
-        return SortPreservingMergeExec(c[0], self.keys, self.fetch)
+        return self._keep_stamp(SortPreservingMergeExec(c[0], self.keys, self.fetch))
 
     def output_partition_count(self) -> int:
         return 1
@@ -1138,7 +1151,7 @@ class CoalescePartitionsExec(ExecutionPlan):
         return [self.input]
 
     def with_children(self, c):
-        return CoalescePartitionsExec(c[0])
+        return self._keep_stamp(CoalescePartitionsExec(c[0]))
 
     def output_partition_count(self) -> int:
         return 1
@@ -1161,7 +1174,7 @@ class LocalLimitExec(ExecutionPlan):
         return [self.input]
 
     def with_children(self, c):
-        return LocalLimitExec(c[0], self.fetch)
+        return self._keep_stamp(LocalLimitExec(c[0], self.fetch))
 
     def node_str(self) -> str:
         return f"LocalLimitExec: fetch={self.fetch}"
@@ -1192,7 +1205,7 @@ class GlobalLimitExec(ExecutionPlan):
         return [self.input]
 
     def with_children(self, c):
-        return GlobalLimitExec(c[0], self.fetch, self.skip)
+        return self._keep_stamp(GlobalLimitExec(c[0], self.fetch, self.skip))
 
     def output_partition_count(self) -> int:
         return 1
@@ -1244,7 +1257,7 @@ class RepartitionExec(ExecutionPlan):
         return [self.input]
 
     def with_children(self, c):
-        return RepartitionExec(c[0], self.scheme, self.n, self.keys)
+        return self._keep_stamp(RepartitionExec(c[0], self.scheme, self.n, self.keys))
 
     def output_partition_count(self) -> int:
         return self.n

@@ -5,8 +5,8 @@ jaxlib or any module of the JAX package; every `ballista_tpu_torch`
 import names a module the port has; running a query through the port,
 in local mode, in the standalone mode (scheduler, executors, shuffle
 files, Flight) and in the remote mode (daemons over gRPC), loads nothing
-of the JAX package; importing the daemons and the client makes no
-torch.cuda call (an executor daemon binds its card before its first
+of the JAX package; importing the daemons, the client and the device
+daemon's client side makes no torch.cuda call (an executor daemon binds its card before its first
 one); and without CUDA the device engine raises unless the CPU was asked
 for.
 """
@@ -127,7 +127,9 @@ def test_daemon_and_client_imports_make_no_cuda_call():
     # a torch.cuda query before bind_process_ordinal would fix the process's
     # visible cards (CUDA reads CUDA_VISIBLE_DEVICES once), and the
     # scheduler must create no CUDA context: importing the daemons, the
-    # remote client and the engine calls nothing of torch.cuda
+    # remote client and the engine calls nothing of torch.cuda, nor does
+    # importing the device daemon's client, its protocol and the route an
+    # attached process ships its stages through
     code = f"""
 import sys
 sys.path.insert(0, {ROOT!r})
@@ -143,6 +145,9 @@ import ballista_tpu_torch.client.context
 import ballista_tpu_torch.engine.cuda_engine
 import ballista_tpu_torch.ops.cuda.stage_compiler
 import ballista_tpu_torch.ops.cuda.cuda_kernels
+import ballista_tpu_torch.device_daemon.client
+import ballista_tpu_torch.device_daemon.protocol
+import ballista_tpu_torch.ops.cuda.daemon_route
 print("CALLS", calls)
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
