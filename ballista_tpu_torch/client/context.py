@@ -21,9 +21,12 @@ and DataFrame entry points. Modes here:
                 stages; results are fetched over Flight from the executors
                 or through the scheduler's result proxy.
 
-Prepared statements, continuous queries and appends through the scheduler
-are not ported yet (ROADMAP A9): `prepare` and `append` raise in the
-standalone and remote modes.
+Prepared statements (`ctx.prepare(sql)` → `execute(params)`, `subscribe`,
+`close`) and appends (`ctx.append`) work in every mode: locally they plan
+and bind in this process; in the standalone and remote modes they go
+through the scheduler's serving tier (plan cache, result cache, fast lane,
+maintained results and continuous queries; serving/). Lease-based direct
+dispatch of a prepared single-stage statement is `client/direct.py`.
 """
 
 from __future__ import annotations
@@ -153,15 +156,18 @@ class SessionContext:
         batches; columns match the table schema by name and are cast to its
         types. Returns {"table", "version", "rows"}.
         """
-        if self.mode != "local":
-            raise NotImplementedError(
-                "append through the scheduler is not ported to ballista_tpu_torch "
-                "yet (ROADMAP A9); append in local mode")
         name = table.lower()
         provider = self.catalog.get(name)
         schema = provider.arrow_schema() if provider is not None else None
         batches = conform_append_batches(data, schema)
         rows = sum(b.num_rows for b in batches)
+        if self.mode == "standalone":
+            scheduler = self._ensure_cluster().scheduler
+            sid = scheduler.sessions.create_or_update(
+                self.config.to_key_value_pairs(), str(self.session_id))
+            return scheduler.append_data(name, batches, sid)
+        if self.mode == "remote":
+            return self._ensure_remote().append_data(name, batches)
         # local mode: overlay the registered provider in place; the planner
         # unions the base scan with the overlay (AppendedTable)
         if provider is None:
@@ -215,11 +221,13 @@ class SessionContext:
             return DataFrame(self, plan, sql_text=query)
         raise PlanningError(f"unsupported statement {type(stmt).__name__}")
 
-    def prepare(self, query: str):
-        """Prepared statements (the serving tier's surface) are not ported
-        yet (ROADMAP A9)."""
-        raise NotImplementedError(
-            "prepared statements are not ported to ballista_tpu_torch yet (ROADMAP A9)")
+    def prepare(self, query: str) -> "ClientPreparedStatement":
+        """Prepare a parameterized SELECT once; `execute(params)` then
+        binds fresh literal values into the cached plan template without
+        re-parsing or re-planning (the serving tier's prepared-statement
+        surface). Parameter slots are the statement's literals in plan
+        walk order."""
+        return ClientPreparedStatement(self, query)
 
     def table(self, name: str) -> "DataFrame":
         from ballista_tpu_torch.plan.logical import TableScan
@@ -261,6 +269,142 @@ class SessionContext:
         if not batches:
             return pa.table({f.name: pa.array([], f.type) for f in schema}, schema=schema)
         return pa.Table.from_batches(batches, schema=schema)
+
+
+class ClientPreparedStatement:
+    """Client handle for a prepared statement. Prepare parses and plans
+    the statement once (server-side for standalone/remote, in-process for
+    local mode); execute() binds parameter values and collects. The slot
+    order is the statement's literal order in plan walk order — the handle
+    exposes `num_params` and `type_tags` so callers can check it."""
+
+    def __init__(self, ctx: SessionContext, query: str):
+        self.ctx = ctx
+        self.sql = query
+        self.statement_id = ""
+        self._local_lift = None
+        if ctx.mode == "standalone" and not ctx._has_memory_tables():
+            # memory tables never ship to the scheduler (same rule as
+            # _collect_standalone) — those statements prepare in-process
+            scheduler = ctx._ensure_cluster().scheduler
+            sid = scheduler.sessions.create_or_update(
+                ctx.config.to_key_value_pairs(), str(ctx.session_id))
+            handle = scheduler.prepare_statement(query, sid)
+        elif ctx.mode == "remote":
+            handle = ctx._ensure_remote().prepare_statement(query)
+        else:
+            from ballista_tpu_torch.serving.normalize import lift_parameters
+            from ballista_tpu_torch.sql.ast import SelectStmt as _Sel
+
+            stmt = parse_sql(query)
+            if not isinstance(stmt, _Sel):
+                raise PlanningError("only SELECT statements can be prepared")
+            lift = lift_parameters(optimize(SqlPlanner(ctx.catalog).plan_query(stmt)))
+            if not lift.cacheable:
+                raise PlanningError(f"statement cannot be parameterized: {lift.reason}")
+            self._local_lift = lift
+            handle = {"statement_id": "local", "num_params": len(lift.values),
+                      "type_tags": list(lift.type_tags)}
+        self.statement_id = handle["statement_id"]
+        self.num_params = int(handle["num_params"])
+        self.type_tags = list(handle["type_tags"])
+
+    def execute(self, params=None) -> pa.Table:
+        from ballista_tpu_torch.config import CLIENT_JOB_TIMEOUT_S
+        from ballista_tpu_torch.errors import ExecutionError
+
+        if self.ctx.mode == "standalone" and self._local_lift is None:
+            scheduler = self.ctx._ensure_cluster().scheduler
+            sid = scheduler.sessions.create_or_update(
+                self.ctx.config.to_key_value_pairs(), str(self.ctx.session_id))
+            job_id = scheduler.execute_prepared(
+                self.statement_id, params, sid, inline_results=True)
+            status = scheduler.wait_for_job(
+                job_id, timeout=float(self.ctx.config.get(CLIENT_JOB_TIMEOUT_S)))
+            if status["state"] != "successful":
+                raise ExecutionError(
+                    f"job {job_id} {status['state']}: {status.get('error', '')}")
+            return fetch_job_results(status, self.ctx.config)
+        if self.ctx.mode == "remote" and self._local_lift is None:
+            client = self.ctx._ensure_remote()
+            job_id = client.execute_prepared(self.statement_id, params)
+            status = client.wait_for_job(
+                job_id, timeout=float(self.ctx.config.get(CLIENT_JOB_TIMEOUT_S)))
+            if status["state"] != "successful":
+                raise ExecutionError(
+                    f"job {job_id} {status['state']}: {status.get('error', '')}")
+            return fetch_job_results(status, self.ctx.config)
+        # local mode: bind into the retained tagged plan and execute here
+        from ballista_tpu_torch.serving.normalize import bind_logical
+
+        values = tuple(params) if params is not None else self._local_lift.values
+        if len(values) != self.num_params:
+            raise PlanningError(
+                f"statement takes {self.num_params} parameters, got {len(values)}")
+        bound = bind_logical(self._local_lift.tagged, values)
+        physical = self.ctx.create_physical_plan(bound)
+        return self.ctx.execute_collect(physical)
+
+    def subscribe(self, params=None) -> "ClientSubscription":
+        """Continuous-query mode: subscribe this statement to the versions
+        of the tables it reads. Every append (or DDL) that touches one of
+        them re-executes the statement — incrementally when the plan shape
+        is maintainable — and pushes the refreshed result; `next()` blocks
+        for it. The first result (current table state) arrives immediately."""
+        if self.ctx.mode == "standalone" and self._local_lift is None:
+            scheduler = self.ctx._ensure_cluster().scheduler
+            sub = scheduler.subscribe_statement(
+                self.statement_id, params, str(self.ctx.session_id))
+            return ClientSubscription(self.ctx, sub=sub)
+        if self.ctx.mode == "remote" and self._local_lift is None:
+            stream = self.ctx._ensure_remote().subscribe_query(self.statement_id, params)
+            return ClientSubscription(self.ctx, stream=stream)
+        raise PlanningError(
+            "continuous queries need a scheduler (standalone or remote mode)")
+
+    def close(self) -> None:
+        if (self.ctx.mode == "standalone" and self._local_lift is None
+                and self.ctx._cluster is not None):
+            self.ctx._cluster.scheduler.close_prepared(self.statement_id)
+
+
+class ClientSubscription:
+    """Handle for a continuous query. `next(timeout)` blocks for the next
+    refreshed result table; `close()` unsubscribes. Standalone mode drains
+    the scheduler's in-process subscription queue; remote mode drains the
+    SubscribeQuery push stream and fetches each refresh's partitions."""
+
+    def __init__(self, ctx: SessionContext, sub=None, stream=None):
+        self.ctx = ctx
+        self._sub = sub
+        self._stream = stream
+        self.subscription_id = sub.sub_id if sub is not None else ""
+
+    def next(self, timeout: float = 30.0) -> pa.Table:
+        from ballista_tpu_torch.errors import ExecutionError
+
+        if self._sub is not None:
+            import queue as _q
+
+            try:
+                st = self._sub.queue.get(timeout=timeout)
+            except _q.Empty:
+                raise ExecutionError(
+                    f"no refresh within {timeout}s on {self.subscription_id}") from None
+        else:
+            st = self._stream.next(timeout=timeout)
+            if not self.subscription_id:
+                self.subscription_id = self._stream.sub_id
+        if st.get("state") != "successful":
+            raise ExecutionError(
+                f"subscription refresh {st.get('state')}: {st.get('error', '')}")
+        return fetch_job_results(st, self.ctx.config)
+
+    def close(self) -> None:
+        if self._sub is not None and self.ctx._cluster is not None:
+            self.ctx._cluster.scheduler.unsubscribe(self._sub.sub_id)
+        elif self._stream is not None:
+            self._stream.close()
 
 
 class DataFrame:

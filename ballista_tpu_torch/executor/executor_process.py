@@ -202,6 +202,11 @@ class ExecutorProcess:
         self.config = config
         self.executor = Executor(self.work_dir, self.metadata, config=config)
         self.executor.isolation = task_isolation
+        if self.flight_server is not None:
+            # the data plane serves lease_grant / lease_dispatch for this
+            # executor: direct dispatch over Flight (client/direct.py); the
+            # native server has no such actions, and its leases demote
+            self.flight_server.attach_executor(self.executor)
         # startup orphan sweep: a crashed prior incarnation that reused this
         # work dir leaves job dirs no scheduler will remove_job_data for;
         # age-gated by the same TTL the background sweep uses, so a fresh

@@ -459,14 +459,21 @@ class BallistaFlightServer(flight.FlightServerBase):
             yield flight.Result(pa.py_buffer(json.dumps(
                 {"rejected": "no-executor-attached"}).encode()))
             return
-        task = decode_task_definition(pb.TaskDefinitionProto.FromString(payload))
+        proto = pb.TaskDefinitionProto.FromString(payload)
+        task = decode_task_definition(proto)
+        cfg = None
+        if proto.props:
+            from ballista_tpu_torch.config import BallistaConfig
+
+            cfg = BallistaConfig.from_key_value_pairs(
+                [(kv.key, kv.value) for kv in proto.props], scrub_restricted=True)
         reason = ex.lease_table.admit(lease_id, task.task_id)
         if reason is not None:
             self._bump("lease_rejections")
             yield flight.Result(pa.py_buffer(json.dumps({"rejected": reason}).encode()))
             return
         try:
-            result = ex.run_task(task)
+            result = ex.run_task(task, cfg)
         finally:
             ex.lease_table.release(lease_id)
         self._bump("lease_dispatch")

@@ -119,9 +119,10 @@ log = logging.getLogger(__name__)
 MAX_SEGMENTS = 1 << 16
 
 # Entry budgets (env-tunable safety rails for long-lived processes).
-# (table_key, fingerprint, device) → device LUT tensors
+# table_key: (the probe scan's DEVICE_CACHE.key_of, _build_leaf_keys)
+# (table_key, fingerprint, emit_pid, device) → device LUT tensors
 _LUT_CACHE = LruDict(_env_int("BALLISTA_TPU_LUT_CACHE_ENTRIES", 256))
-# (table_key, fingerprint, join_idx, device) → BuildTable
+# (table_key, fingerprint, join_idx, device, grace) → BuildTable
 _BUILD_CACHE = LruDict(
     _env_int("BALLISTA_TPU_BUILD_CACHE_ENTRIES", 32),
     max_bytes=_env_int("BALLISTA_TPU_BUILD_CACHE_BYTES", 2 * 1024**3),
@@ -337,6 +338,55 @@ class DeviceTable:
         return out
 
 
+def _no_code_extreme(fn, func: str):
+    """MIN and MAX over a dictionary-coded string column would reduce its
+    codes and decode the code's digits as the answer; decline instead
+    (ROADMAP C21), so the CPU engine answers."""
+
+    def run(cols, luts):
+        v = fn(cols, luts)
+        if v.kind == "code":
+            raise Unsupported(f"{func} over a string column")
+        return v
+
+    return run
+
+
+def _file_stamp(path: str) -> tuple:
+    try:
+        st = os.stat(path)
+    except (OSError, ValueError):
+        return ()  # an object-store URL: the path alone names it
+    return (st.st_size, st.st_mtime_ns, st.st_ino)
+
+
+def _build_leaf_keys(join_ops) -> tuple:
+    """What every join's build side reads. The build's display (in the
+    stage fingerprint) names a shuffle read by its partition counts, a
+    parquet scan by its table name and a memory scan by its row count, so
+    two builds of one shape over other data (another job's broadcast, a
+    re-registered table, an appended delta) shared a cached build and its
+    LUTs (ROADMAP C18)."""
+    out = []
+
+    def walk(node):
+        kids = node.children()
+        if not kids:
+            locs = getattr(node, "partition_locations", None)  # ShuffleReaderExec
+            if locs is not None:
+                out.append(("shuffle", tuple((l.job_id, l.stage_id, l.map_partition,
+                                              l.output_partition, l.path)
+                                             for part in locs for l in part)))
+            else:
+                out.append(DEVICE_CACHE.key_of(node))
+        for c in kids:
+            walk(c)
+
+    for op in join_ops:
+        walk(op.left)
+    return tuple(out)
+
+
 class DeviceTableCache:
     def __init__(self):
         import collections
@@ -462,8 +512,12 @@ class DeviceTableCache:
 
     def key_of(self, scan) -> tuple:
         if isinstance(scan, ParquetScanExec):
+            # a file's size, mtime and inode beside its path: a file
+            # rewritten under the same name (an ingest spool part folded
+            # again after a scheduler restart) is another table (ROADMAP C18)
             files = tuple(
-                tuple((f["file"], tuple(f.get("row_groups") or ())) for f in p.get("files", []))
+                tuple((f["file"], tuple(f.get("row_groups") or ()), _file_stamp(f["file"]))
+                      for f in p.get("files", []))
                 for p in scan.partitions
             )
             return (files, tuple(scan.projection))
@@ -1095,8 +1149,10 @@ class TpuStageExec(ExecutionPlan):
                 # under disk pressure demotions stay in the host tier
                 spill_gate=lambda: _disk.spill_allowed(self.config,
                                                        sdir or tempfile.gettempdir()))
-        table_key = DEVICE_CACHE.key_of(self.scan)
         join_ops = [o for o in self.ops if isinstance(o, HashJoinExec)]
+        # the build and LUT caches' key: the probe table and the tables
+        # under each build side
+        table_key = (DEVICE_CACHE.key_of(self.scan), _build_leaf_keys(join_ops))
         dt = DEVICE_CACHE.get(self.scan, self.buckets, ctx, max_bytes, device,
                               fill_threads=int(self.config.get(TPU_FILL_THREADS)),
                               stats=rec, spill_pool=spill_pool)
@@ -1524,7 +1580,10 @@ class TpuStageExec(ExecutionPlan):
                 agg_fns.append(None)
                 agg_modes.append("build_cnt")
             else:
-                agg_fns.append(lower_expr(d.expr, ctx) if d.expr is not None else None)
+                fn = lower_expr(d.expr, ctx) if d.expr is not None else None
+                if fn is not None and d.func in ("min", "max"):
+                    fn = _no_code_extreme(fn, d.func)
+                agg_fns.append(fn)
                 agg_modes.append("row")
 
         if not unrolled:

@@ -84,6 +84,37 @@ class GrpcTaskLauncher(TaskLauncher):
         stub = self._stub_for(addr)
         stub.RemoveJobData(pb.RemoveJobDataParams(job_id=job_id), timeout=10)
 
+    def _flight_action(self, executor_id: str, server, kind: str, body: dict) -> None:
+        """One Flight action on the executor's data plane, where its
+        lease table lives (flight/server.py `lease_grant`, `lease_revoke`)."""
+        import json
+
+        import pyarrow.flight as flight
+
+        from ballista_tpu_torch.config import GRPC_TLS_CA, GRPC_TLS_CERT, GRPC_TLS_KEY
+        from ballista_tpu_torch.flight.client import POOL
+
+        slot = server.executors.get(executor_id)
+        if slot is None:
+            raise RuntimeError(f"unknown executor {executor_id}")
+        tls = None
+        if self._tls_config is not None and self._tls_config.get(GRPC_TLS_CA):
+            tls = (str(self._tls_config.get(GRPC_TLS_CA)),
+                   str(self._tls_config.get(GRPC_TLS_CERT) or "") or None,
+                   str(self._tls_config.get(GRPC_TLS_KEY) or "") or None)
+        client = POOL.get(f"{slot.metadata.host}:{slot.metadata.flight_port}", tls)
+        list(client.do_action(flight.Action(kind, json.dumps(body).encode()),
+                              options=flight.FlightCallOptions(timeout=10)))
+
+    def grant_lease(self, executor_id: str, lease, server: SchedulerServer) -> None:
+        # the base launcher pushes nothing, and an executor daemon then
+        # rejected every direct dispatch as "unknown-lease" (ROADMAP C19)
+        self._flight_action(executor_id, server, "lease_grant", lease.to_wire())
+
+    def revoke_lease(self, executor_id: str, lease_id: str, server: SchedulerServer) -> None:
+        self._flight_action(executor_id, server, "lease_revoke",
+                            {"executor_id": executor_id, "lease_id": lease_id})
+
 
 class SchedulerProcess:
     def __init__(self, bind_host: str = "0.0.0.0", port: int = 50050,

@@ -535,6 +535,11 @@ class SchedulerServer:
         with self._jobs_lock:
             self.jobs[job_id] = job
             self._fast_jobs[job_id] = job
+            if fill is not None and fill.kind != "plain":
+                # the partitions hold delta rows or accumulator state, not
+                # the answer: clients poll until the fill renders it, as on
+                # the graph path (ROADMAP C22)
+                self._rc_render_pending.add(job_id)
         parts = list(range(n))
         i = 0
         for executor_id, count in reservations:
@@ -1109,6 +1114,8 @@ class SchedulerServer:
                     self._fast_jobs.pop(r.job_id, None)
                 self.metrics.record_completed(job.job_id, time.time() - job.queued_at)
                 self._maybe_cache_result(job)
+                with self._jobs_lock:
+                    self._rc_render_pending.discard(job.job_id)
                 self._notify(job.job_id)
             elif outcome == "failed":
                 self._fast_fallback(job, job.error)
@@ -1124,6 +1131,9 @@ class SchedulerServer:
             graph = ExecutionGraph(job.job_id, job.job_name, job.session_id,
                                    job.demote(), job.config)
             self.jobs[job.job_id] = graph
+            if job.rc_key is not None:
+                # the graph path finishes the fill the fast job carried
+                self._rc_pending[job.job_id] = job.rc_key
         self.serving.note_fast_lane("fallback")
         self.metrics.record_fast_lane("fallback")
         log.warning("fast lane fell back to full DAG for %s: %s",
@@ -1617,6 +1627,9 @@ class SchedulerServer:
         self.executors.free_slot(lease.executor_id, lease.slots)
         self.metrics.record_lease("revoked")
         self._push_lease_revocations([lease])
+        # graph work queued behind the leased slots sees no other event
+        # (ROADMAP C20)
+        self.post(Event("revive"))
         return True
 
     def _sweep_leases(self, now: float) -> None:
@@ -1629,6 +1642,7 @@ class SchedulerServer:
             self.metrics.record_lease("expired")
         if expired:
             self._push_lease_revocations(expired)
+            self.post(Event("revive"))
 
     def _push_lease_revocations(self, leases: list) -> None:
         if self.launcher is None:

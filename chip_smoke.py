@@ -197,12 +197,35 @@ Phases, each fatal on failure (non-zero exit, no result line):
    crashed daemon's exit 137, a new generation token; (f) SIGTERM: the
    respawned daemon exits 0 and its socket is gone. The clients' imports
    run while the daemon starts and the first client runs;
-12. print one JSON line of kernel numbers (each kernel's launches on every
-   path above, the standalone and remote modes', TPC-DS's and the
-   daemon's apart as well), the card line, and last {"ok": true,
-   "device": {...}}.
+12. (run after 10 (b)) the serving surface, engine=tpu throughout: (a)
+   q6, q4, q5 and q12 (fused_pallas, its ship modes as `=` predicates) at
+   --q4-scale, each prepared once in local mode and through
+   SessionContext.standalone(num_executors=1, vcores=4) and executed with
+   A's, B's and A's literals: each answer equal to engine=cpu's answer of
+   that text (as in phase 4; F32_LANE_RTOL where masked_group_reduce
+   ran), every device stage on the card with no fallback, each
+   execution's kernel launched (masked_group_reduce, hash_probe,
+   dict_filter in both modes), per execution its wall, plan-cache and
+   result-cache hits and device passes, and one traced warm execution;
+   (b) two continuous queries over --q4-scale lineitem in the standalone
+   mode with the result cache on, q1's grouping with its COUNT and q12 (a
+   delta join): three lineitem deltas from the port's generator (scale
+   0.01, seeds 43-45) appended, each push equal to engine=cpu over the base
+   and the deltas so far, each refresh maintained, its incremental_mode,
+   reason, device nodes and append-to-push time printed, the last one
+   traced; (c) DirectDispatcher over LocalLeaseTransport on a standalone
+   executor: three parameter sets direct, each equal to the graph path and
+   engine=cpu, the lease revoked (demoted, equal), a fresh lease direct;
+   (d) an in-process SchedulerProcess and one ExecutorProcess pinned to
+   card 0 with the Python Flight server: q4 prepared with A and B, an
+   append of 20,000 rows pushed to q1's count subscription, and two
+   executions over FlightLeaseTransport, each equal to engine=cpu;
+13. print one JSON line of kernel numbers (each kernel's launches on every
+   path above, the standalone and remote modes', TPC-DS's, the daemon's
+   and the serving phase's apart as well), the card line, and last
+   {"ok": true, "device": {...}}.
 
-For the run's time limit, the engine=cpu answers of phases 4-10 (with
+For the run's time limit, the engine=cpu answers of phases 4-12 (with
 phase 10's CPU-form claims) are computed in ORACLE_WORKERS child
 processes while the data is generated (as many again for --scale's), and
 all of them are in before the first timed run: no timed window shares the
@@ -210,7 +233,8 @@ host with the generator or the CPU engine. Meanwhile the card runs phase
 10 (a), right after phase 3, as the answers at scale 0.1 come in (its
 walls are taken beside the generator and the workers), and q21 large's
 fused_xla reference run (phase 6), whose wall is not a cell's. Host-bound
-cells reached late keep one warm run (LATE_AT).
+cells reached late keep one warm run, and phase 12 drops its traced runs
+(LATE_AT).
 
 Options: --scale (q1/q6/q5/q12 scale factor, default 10), --q4-scale
 (default 1), --data-dir (default build/tpch), --tpcds-dir (default
@@ -253,14 +277,16 @@ SPILL_CONFIG = {**QUERY_CONFIG, "ballista.tpu.hbm.spill.enabled": True,
 # longer on one host than on another. A repeated cell whose warm runs are
 # host-bound reached past its mark here (seconds since the start, about
 # 1.15x where a host like PR 11 R3's reaches it) keeps one warm run
-# instead of best of 3; every check of it stays.
-LATE_AT = {"remote": 800.0, "tpcds_big": 850.0}
+# instead of best of 3 (phase 12 drops its traced runs); every check of it
+# stays.
+LATE_AT = {"remote": 800.0, "tpcds_big": 850.0, "serving": 900.0}
 
 
 def warm_runs(t0: float, cell: str) -> int:
     late = time.time() - t0 > LATE_AT[cell]
     if late:
-        log(f"{cell} reached past {LATE_AT[cell]:g}s: one warm run instead of best of 3")
+        log(f"{cell} reached past {LATE_AT[cell]:g}s: its late form (one warm run, "
+            "no traced serving runs)")
     return 1 if late else 3
 
 
@@ -472,6 +498,13 @@ class CpuOracle:
         for job in list(self.pending):
             self._collect(job)
         self.stop()
+
+    def keyed(self, key):
+        """(answer, wall) of a job `_submit`ted under `key`; it stays for
+        the next read."""
+        if key in self.pending:
+            self._collect(key)
+        return self.answers[key]
 
     def answer(self, sql: str, data_dir: str):
         return self.answers.pop((sql, data_dir), None) or cpu_engine_answer(sql, data_dir)
@@ -1027,14 +1060,17 @@ def _walk(node):
         yield from _walk(c)
 
 
-def compare_answers(dev_tbl, cpu_tbl, q: int, rtol: float = 1e-9) -> None:
+def compare_answers(dev_tbl, cpu_tbl, q: int | str, rtol: float = 1e-9) -> None:
+    """`q`: a TPC-H query number, or a label of its own."""
     import numpy as np
     import pyarrow as pa
 
+    label = f"q{q}" if isinstance(q, int) else q
+
     if dev_tbl.schema != cpu_tbl.schema:
-        raise AssertionError(f"q{q}: schema {dev_tbl.schema} != {cpu_tbl.schema}")
+        raise AssertionError(f"{label}: schema {dev_tbl.schema} != {cpu_tbl.schema}")
     if dev_tbl.num_rows != cpu_tbl.num_rows:
-        raise AssertionError(f"q{q}: {dev_tbl.num_rows} rows != {cpu_tbl.num_rows}")
+        raise AssertionError(f"{label}: {dev_tbl.num_rows} rows != {cpu_tbl.num_rows}")
     for i, (name, f) in enumerate(zip(dev_tbl.column_names, dev_tbl.schema)):
         a = dev_tbl.column(i).combine_chunks()
         b = cpu_tbl.column(i).combine_chunks()
@@ -1042,9 +1078,9 @@ def compare_answers(dev_tbl, cpu_tbl, q: int, rtol: float = 1e-9) -> None:
             x = a.to_numpy(zero_copy_only=False)
             y = b.to_numpy(zero_copy_only=False)
             if not np.allclose(x, y, rtol=rtol, atol=0.0, equal_nan=True):
-                raise AssertionError(f"q{q}: column {name} differs: {x[:4]} vs {y[:4]}")
+                raise AssertionError(f"{label}: column {name} differs: {x[:4]} vs {y[:4]}")
         elif not a.equals(b):
-            raise AssertionError(f"q{q}: column {name} differs exactly")
+            raise AssertionError(f"{label}: column {name} differs exactly")
 
 
 # per query: the fusion mode the reference reports, the config it runs
@@ -3059,6 +3095,577 @@ def run_tpcds_big_query(q: int, data_dir: str, dev, busy_ok: bool, warm: int = 3
     }
 
 
+# ---------------------------------------------------------------- serving
+
+# phase 12: the serving surface (client/context.py prepare / execute /
+# subscribe / append, client/direct.py) on the card. The deltas appended in
+# (b) and (d): lineitem from the port's generator at this scale and these
+# seeds (about 60,000 rows each, above ballista.tpu.min.rows's default 8192)
+SERVING_DELTA_SCALE = 0.01
+SERVING_DELTA_SEEDS = (43, 44, 45)
+SERVING_SMALL_DELTA_ROWS = 20_000  # (d): the head of the first delta
+GENERATORS.update({f"delta{seed}": ("ballista_tpu_torch.testing.tpchgen", "generate_tpch",
+                                    seed, 1) for seed in SERVING_DELTA_SEEDS})
+_YEAR_ON = (("date '1995-01-01'", "date '1996-01-01'"),
+            ("date '1994-01-01'", "date '1995-01-01'"))
+# q1's grouping and filter with its COUNT only: the generator stores
+# quantities and prices as float64, so q1's SUMs are float sums, which
+# analyze_plan declines ("float-sum") in both packages
+Q1_COUNT_SQL = ("select l_returnflag, l_linestatus, count(*) as count_order "
+                "from lineitem where l_shipdate <= date '1998-09-02' "
+                "group by l_returnflag, l_linestatus order by l_returnflag, l_linestatus")
+# (c): a single-stage statement (scan, filter, project); the device engine
+# claims partial aggregates, and every aggregate plan has two stages
+DIRECT_SQL = "select l_orderkey, l_partkey, l_quantity from lineitem where l_quantity < 2"
+DIRECT_PARAMS = ((2,), (3,), (5,))
+SERVING_CONFIG = {**QUERY_CONFIG, "ballista.scheduler.lease.enabled": True}
+
+
+def serving_statements() -> list:
+    """(a): (name, A text, B text, config, kernel), each at --q4-scale (q6
+    and q12 cut from --scale for the run's time limit, PERF.md §4:
+    standalone q12 at SF10 took about 6 s an execution, one broadcast
+    build a job). q12's ship modes are `=` predicates here: an IN list's
+    values are the plan's shape, not parameter slots, in both packages."""
+    q12 = _query_sql(12).replace("l_shipmode in ('MAIL', 'SHIP')",
+                                 "(l_shipmode = 'MAIL' or l_shipmode = 'SHIP')")
+    out = []
+    for name, a, reps, extra, kernel in (
+            ("q6", _query_sql(6), _YEAR_ON + (("0.05 and 0.07", "0.04 and 0.06"),
+                                              ("< 24", "< 30")), {}, None),
+            ("q4", _query_sql(4), (("date '1993-10-01'", "date '1994-01-01'"),
+                                   ("date '1993-07-01'", "date '1993-10-01'")),
+             {}, "masked_group_reduce"),
+            ("q5", _query_sql(5), (("'ASIA'", "'EUROPE'"),) + _YEAR_ON, {}, "hash_probe"),
+            ("q12", q12, (("'MAIL'", "'AIR'"), ("'SHIP'", "'RAIL'")),
+             {"ballista.tpu.fusion.mode": "fused_pallas"}, "dict_filter")):
+        b = a
+        for old, new in reps:
+            if old not in b:
+                raise AssertionError(f"{name}: no {old} in its text")
+            b = b.replace(old, new)
+        out.append((name, a, b, extra, kernel))
+    return out
+
+
+def _lineitem_delta(delta_dir: str, head: int = 0):
+    import pyarrow.parquet as pq
+
+    tbl = pq.read_table(os.path.join(delta_dir, "lineitem"))
+    return tbl.slice(0, head) if head else tbl
+
+
+def _serving_oracle_job(sql: str, data_dir: str, delta_dirs: tuple, head: int):
+    """The port's engine=cpu answer to `sql` over `data_dir` with each of
+    `delta_dirs`' lineitem appended (its first `head` rows where given), in
+    local mode, as an Arrow IPC stream, and its wall."""
+    import pyarrow as pa
+
+    from ballista_tpu_torch.client.context import SessionContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.testing.tpchgen import register_tpch
+
+    ctx = SessionContext(BallistaConfig({"ballista.executor.engine": "cpu"}))
+    register_tpch(ctx, data_dir)
+    for d in delta_dirs:
+        ctx.append("lineitem", _lineitem_delta(d, head))
+    t0 = time.time()
+    tbl = ctx.sql(sql).collect()
+    seconds = time.time() - t0
+    sink = pa.BufferOutputStream()
+    with pa.ipc.new_stream(sink, tbl.schema) as w:
+        w.write_table(tbl)
+    return sink.getvalue(), seconds
+
+
+def submit_serving_oracle(q4_dir: str, delta_dirs: list) -> None:
+    """Phase 12's engine=cpu answers, into the oracle's pools: (a)'s
+    statements with A's and B's literals, (b)'s after 0-3 deltas, (c)'s
+    parameter sets and (d)'s delta."""
+    for name, a, b, _extra, _k in serving_statements():
+        for tag, text in (("a", a), ("b", b)):
+            ORACLE._submit(("serving", name, tag), _serving_oracle_job, text, q4_dir,
+                                (), 0)
+    for name, sql in (("q1_count", Q1_COUNT_SQL), ("q12_join", _query_sql(12))):
+        for k in range(len(delta_dirs) + 1):
+            ORACLE._submit(("serving", name, k), _serving_oracle_job, sql, q4_dir,
+                                tuple(delta_dirs[:k]), 0)
+    ORACLE._submit(("serving", "q1_count", "small_delta"), _serving_oracle_job,
+                        Q1_COUNT_SQL, q4_dir, tuple(delta_dirs[:1]), SERVING_SMALL_DELTA_ROWS)
+    for (k,) in DIRECT_PARAMS:
+        ORACLE._submit(("serving", "direct", k), _serving_oracle_job,
+                            DIRECT_SQL.replace("< 2", f"< {k}"), q4_dir, (), 0)
+
+
+def _sorted_rows(tbl):
+    return tbl.sort_by([(n, "ascending") for n in tbl.column_names])
+
+
+def _job_device(jobs: list) -> dict:
+    """{node kind: [nodes, device passes, fallbacks]} summed over `jobs`."""
+    from ballista_tpu_torch.testing.standalone_stats import stage_stats
+
+    out: dict = {}
+    for job in jobs:
+        for st in stage_stats(job).values():
+            for kind, counts in st["device"].items():
+                acc = out.setdefault(kind, [0, 0, 0])
+                for i, v in enumerate(counts):
+                    acc[i] += v
+    return out
+
+
+def _jobs_since(scheduler, seen: set) -> list:
+    with scheduler._jobs_lock:
+        return [j for jid, j in scheduler.jobs.items() if jid not in seen]
+
+
+class _CompiledPlans:
+    """The device plans a local-mode execution compiled: `execute_collect`
+    imports maybe_compile_tpu from the engine on every call; this wrapper
+    hands the result on unchanged and keeps it, so a prepared statement's
+    device passes can be read from its nodes' counters."""
+
+    def __init__(self):
+        self.plans: list = []
+
+    def __enter__(self):
+        from ballista_tpu_torch.engine import cuda_engine
+
+        self._orig = cuda_engine.maybe_compile_tpu
+
+        def keep(plan, config):
+            out = self._orig(plan, config)
+            self.plans.append(out)
+            return out
+
+        cuda_engine.maybe_compile_tpu = keep
+        return self
+
+    def __exit__(self, *exc):
+        from ballista_tpu_torch.engine import cuda_engine
+
+        cuda_engine.maybe_compile_tpu = self._orig
+
+    def device(self) -> dict:
+        out: dict = {}
+        for plan in self.plans:
+            for kind, runs, fallbacks in device_claims(plan):
+                acc = out.setdefault(kind, [0, 0, 0])
+                acc[0] += 1
+                acc[1] += runs
+                acc[2] += fallbacks
+        self.plans = []
+        return out
+
+
+def _hold_device(label: str, device: dict, passes_per_node: int = 1) -> None:
+    """Every device node ran on the card, none fell back."""
+    if not device:
+        raise AssertionError(f"{label}: no device stage ran")
+    for kind, (nodes, passes, fallbacks) in device.items():
+        if fallbacks or passes < nodes * passes_per_node:
+            raise AssertionError(f"{label}: {nodes} {kind} ran {passes} device passes "
+                                 f"and {fallbacks} fallbacks")
+
+
+def _prepared_cell(mode: str, ctx, stmt, scheduler, busy_ok: bool) -> dict:
+    """(a), one statement in one mode: prepared once, executed A, B, A; each
+    answer held to the engine=cpu answer of that text (floats rtol 1e-9, or
+    F32_LANE_RTOL where masked_group_reduce ran), every device stage on the
+    card with no fallback, the kernel launched in every execution; then one
+    traced warm execution of A. `scheduler`: the cluster's, None locally."""
+    from ballista_tpu_torch.ops.cuda import cuda_kernels as ck
+
+    name, a_text, b_text, _extra, kernel = stmt
+    params = {"a": _lift_values(ctx, a_text), "b": _lift_values(ctx, b_text)}
+    t0 = time.time()
+    ps = ctx.prepare(a_text)
+    prepare_s = time.time() - t0
+    if ps.num_params != len(params["a"]):
+        raise AssertionError(f"{name} {mode}: {ps.num_params} slots, {len(params['a'])} lifted")
+    execs = []
+    compiled = _CompiledPlans()
+    try:
+        for tag in ("a", "b", "a"):
+            snap = scheduler.serving.snapshot() if scheduler is not None else None
+            seen = set(scheduler.jobs) if scheduler is not None else set()
+            before = dict(ck.LAUNCHES)
+            with compiled:
+                t1 = time.time()
+                tbl = ps.execute(params[tag])
+                wall = time.time() - t1
+            launches = {k: ck.LAUNCHES[k] - before[k] for k in before}
+            compare_answers(tbl, ORACLE.keyed(("serving", name, tag))[0], f"{name} {mode} {tag}",
+                            F32_LANE_RTOL if launches["masked_group_reduce"] else 1e-9)
+            cached = plan_hit = None
+            if scheduler is None:
+                device = compiled.device()
+            else:
+                after = scheduler.serving.snapshot()
+                device = _job_device(_jobs_since(scheduler, seen))
+                cached = after["result_cache"]["hits"] > snap["result_cache"]["hits"]
+                plan_hit = after["plan_cache"]["hits"] > snap["plan_cache"]["hits"]
+            if not cached:
+                _hold_device(f"{name} {mode} {tag}", device)
+                if kernel is not None and launches[kernel] < 1:
+                    raise AssertionError(f"{name} {mode} {tag}: no {kernel} launch")
+            execs.append({"params": tag, "wall_s": wall, "plan_cache_hit": plan_hit,
+                          "result_cache_hit": cached, "device_nodes": device,
+                          "device_passes": sum(d[1] for d in device.values()),
+                          "kernel_launches": {k: v for k, v in launches.items() if v},
+                          "rows_out": tbl.num_rows})
+        busy = traced_wall = None
+        if busy_ok:
+            t1 = time.time()
+            busy = device_busy_ms(lambda: ps.execute(params["a"]))
+            traced_wall = time.time() - t1
+    finally:
+        ps.close()
+    log(f"{name} {mode}: A, B, A equal to engine=cpu; walls "
+        f"{[round(e['wall_s'], 4) for e in execs]}; passes {[e['device_passes'] for e in execs]}")
+    return {"query": f"serving_{mode}_{name}", "prepare_s": prepare_s, "executions": execs,
+            "params": {k: [str(x) for x in v] for k, v in params.items()},
+            "device_busy_ms": busy, "traced_wall_s": traced_wall,
+            "device_idle_share": None if busy is None else 1.0 - busy / 1e3 / traced_wall}
+
+
+def _lift_values(ctx, sql: str) -> list:
+    """The slot values of `sql` as the port lifts them: the parameters a
+    prepared statement of A's text takes to answer B's text."""
+    from ballista_tpu_torch.serving.normalize import lift_parameters
+    from ballista_tpu_torch.sql.optimizer import optimize
+    from ballista_tpu_torch.sql.parser import parse_sql
+    from ballista_tpu_torch.sql.planner import SqlPlanner
+
+    lift = lift_parameters(optimize(SqlPlanner(ctx.catalog).plan_query(parse_sql(sql))))
+    if not lift.cacheable:
+        raise AssertionError(f"statement not parameterizable: {lift.reason}")
+    return list(lift.values)
+
+
+def _subscriptions_cell(q4_dir: str, delta_dirs: list, busy_ok: bool) -> dict:
+    """(b): continuous queries over SF1 lineitem in the standalone mode, the
+    result cache on: q1's grouping with its COUNT (maintained) and q12, a
+    delta join (orders ⋈ lineitem, only lineitem appended). Each delta is
+    appended once, and both subscriptions push a refresh; every push equals
+    engine=cpu over the base and every delta so far. Per refresh: the
+    statement's incremental_mode and reason, the maintained count, the
+    jobs' device nodes (the delta stage on the card or not), the time from
+    append returning to the push, and the kernel launches. The third
+    append is traced."""
+    import queue
+
+    from ballista_tpu_torch.client.context import SessionContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.ops.cuda import cuda_kernels as ck
+    from ballista_tpu_torch.testing.tpchgen import register_tpch
+
+    cfg = {**SERVING_CONFIG, "ballista.serving.result.cache.enabled": True}
+    ctx = SessionContext.standalone(BallistaConfig(cfg), num_executors=1, vcores=4)
+    subs = {}
+    try:
+        register_tpch(ctx, q4_dir)
+        scheduler = ctx._ensure_cluster().scheduler
+        for name, sql in (("q1_count", Q1_COUNT_SQL), ("q12_join", _query_sql(12))):
+            ps = ctx.prepare(sql)
+            sub = ps.subscribe()
+            t0 = time.time()
+            first = sub.next(timeout=300)
+            compare_answers(first, ORACLE.keyed(("serving", name, 0))[0], f"{name} base")
+            key = scheduler.serving.get_prepared(ps.statement_id).key
+            subs[name] = (ps, sub, key, time.time() - t0)
+        refreshes = []
+        for k, delta_dir in enumerate(delta_dirs, start=1):
+            delta = _lineitem_delta(delta_dir)
+            seen = set(scheduler.jobs)
+            inc0 = scheduler.serving.snapshot()["incremental"]
+            before = dict(ck.LAUNCHES)
+            pushed = {}
+
+            def append_and_drain():
+                t1 = time.time()
+                ctx.append("lineitem", delta)
+                t_ret = time.time()
+                for name, (_ps, sub, _key, _s) in subs.items():
+                    tbl = sub.next(timeout=300)
+                    pushed[name] = (tbl, time.time() - t_ret)
+                return t_ret - t1
+
+            busy = traced_wall = None
+            if k == len(delta_dirs) and busy_ok:
+                t1 = time.time()
+                append_s = []
+                busy = device_busy_ms(lambda: append_s.append(append_and_drain()))
+                traced_wall = time.time() - t1
+                append_s = append_s[0]
+            else:
+                append_s = append_and_drain()
+            inc = scheduler.serving.snapshot()["incremental"]
+            jobs = _jobs_since(scheduler, seen)
+            rec = {"delta": k, "delta_rows": delta.num_rows, "append_s": append_s,
+                   "kernel_launches": {n: ck.LAUNCHES[n] - before[n] for n in before
+                                       if ck.LAUNCHES[n] - before[n]},
+                   "jobs": len(jobs), "device_busy_ms": busy, "traced_wall_s": traced_wall,
+                   "maintained": inc["maintained"] - inc0["maintained"],
+                   "recomputes": inc["recomputes"] - inc0["recomputes"]}
+            for name, (_ps, _sub, key, _s) in subs.items():
+                tbl, latency = pushed[name]
+                compare_answers(tbl, ORACLE.keyed(("serving", name, k))[0], f"{name} delta {k}")
+                mode = inc["modes"].get(key, {})
+                mine = [j for j in jobs if ("orders" in _job_tables(j)) == (name == "q12_join")]
+                device = _job_device(mine)
+                on_card = any(d[1] for kind, d in device.items() if kind == "TpuStageExec")
+                if any(d[2] for d in device.values()):
+                    raise AssertionError(f"{name} refresh {k}: a device stage fell back: {device}")
+                rec[name] = {"incremental_mode": mode.get("mode"),
+                             "incremental_reason": mode.get("reason"),
+                             "append_to_push_s": latency, "device_nodes": device,
+                             "delta_stage_on_card": on_card}
+            if rec["maintained"] < len(subs):
+                raise AssertionError(f"refresh {k}: {rec['maintained']} maintained of {len(subs)}")
+            refreshes.append(rec)
+            log(f"refresh {k} ({delta.num_rows} rows): " + "; ".join(
+                f"{n} {rec[n]['incremental_mode']} push {rec[n]['append_to_push_s']:.4f}s "
+                f"on card {rec[n]['delta_stage_on_card']}" for n in subs))
+        snap = scheduler.subscriptions.snapshot()
+        for _ps, sub, _key, _s in subs.values():
+            try:
+                extra = sub._sub.queue.get_nowait()
+                raise AssertionError(f"an unexpected push: {extra.get('job_id')}")
+            except queue.Empty:
+                pass
+    finally:
+        for ps, sub, _key, _s in subs.values():
+            sub.close()
+            ps.close()
+        ctx.shutdown()
+    return {"query": "serving_subscriptions", "refreshes": refreshes,
+            "first_push_s": {n: v[3] for n, v in subs.items()}, "subscriptions": snap}
+
+
+def _job_tables(job) -> set:
+    """The tables a job's stages scan."""
+    from ballista_tpu_torch.serving.normalize import collect_scan_tables
+
+    out: set = set()
+    for st in job.stages.values():
+        # a graph's stage holds its plan; a fast-lane job's view, its spec's
+        plan = getattr(st, "plan", None) or getattr(getattr(st, "spec", None), "plan", None)
+        if plan is not None:
+            out |= collect_scan_tables(plan)
+    return out
+
+
+def _direct_cell(q4_dir: str) -> dict:
+    """(c): DirectDispatcher over LocalLeaseTransport on a standalone
+    cluster's executor on the card: DIRECT_PARAMS direct, each equal to the
+    graph path (execute_prepared) and to engine=cpu (rows sorted); the lease
+    revoked, the next execution demoted and equal; a fresh lease direct."""
+    from ballista_tpu_torch.client.context import SessionContext, fetch_job_results
+    from ballista_tpu_torch.client.direct import DirectDispatcher, LocalLeaseTransport
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.testing.tpchgen import register_tpch
+
+    ctx = SessionContext.standalone(BallistaConfig(dict(SERVING_CONFIG)), num_executors=1,
+                                    vcores=4)
+    try:
+        register_tpch(ctx, q4_dir)
+        cluster = ctx._ensure_cluster()
+        scheduler = cluster.scheduler
+        sid = scheduler.sessions.create_or_update(ctx.config.to_key_value_pairs(),
+                                                  str(ctx.session_id))
+        d = DirectDispatcher(scheduler, LocalLeaseTransport(cluster.executors), sid, slots=1)
+        d.prepare(DIRECT_SQL)
+        runs = []
+
+        def one(params, want_direct: bool) -> dict:
+            t0 = time.time()
+            st = d.execute(params)
+            tbl = _sorted_rows(fetch_job_results(st, ctx.config))
+            wall = time.time() - t0
+            if bool(st.get("direct_dispatch")) != want_direct:
+                raise AssertionError(f"direct {params}: direct_dispatch={st.get('direct_dispatch')}")
+            want = _sorted_rows(ORACLE.keyed(("serving", "direct", params[0]))[0])
+            if not tbl.equals(want):
+                raise AssertionError(f"direct {params}: not the engine=cpu answer")
+            return {"params": list(params), "path": "direct" if want_direct else "demoted",
+                    "wall_s": wall, "rows_out": tbl.num_rows, "table": tbl}
+
+        for params in DIRECT_PARAMS:
+            r = one(params, True)
+            t0 = time.time()
+            jid = scheduler.execute_prepared(d.statement_id, params, session_id=sid)
+            st = scheduler.wait_for_job(jid, timeout=300)
+            graph = _sorted_rows(fetch_job_results(st, ctx.config))
+            r["graph_wall_s"] = time.time() - t0
+            if not graph.equals(r.pop("table")):
+                raise AssertionError(f"direct {params}: not byte-equal to the graph path")
+            runs.append(r)
+        lease = d._lease
+        if not scheduler.revoke_executor_lease(lease.lease_id):
+            raise AssertionError("the lease was not revoked")
+        d._lease = lease.clone()  # the client's copy still looks valid
+        d._lease.revoked = False
+        d._lease.expires_at = time.time() + 60
+        for want_direct in (False, True):
+            r = one(DIRECT_PARAMS[0], want_direct)
+            r.pop("table")
+            runs.append(r)
+        stats = dict(d.stats)
+        scheduler.revoke_executor_lease(d._lease.lease_id)
+        leases = scheduler.leases.snapshot()
+    finally:
+        ctx.shutdown()
+    log(f"direct dispatch: {[(r['path'], round(r['wall_s'], 4)) for r in runs]}, {stats}")
+    return {"query": "serving_direct", "runs": runs, "dispatcher": stats, "leases": leases,
+            "device_stage": False}
+
+
+def _remote_serving_cell(q4_dir: str, delta_dirs: list) -> dict:
+    """(d): an in-process SchedulerProcess and one ExecutorProcess at
+    engine=tpu pinned to card 0 (one slot; the Python Flight server, which
+    serves the lease actions): (a)'s q4 prepared with A and B, one append
+    of the first delta's head with q1_count's subscription pushing, and
+    DirectDispatcher over FlightLeaseTransport for two executions."""
+    import shutil
+
+    from ballista_tpu_torch.client.context import SessionContext, fetch_job_results
+    from ballista_tpu_torch.client.direct import DirectDispatcher, FlightLeaseTransport
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.executor.executor_process import ExecutorProcess
+    from ballista_tpu_torch.ops.cuda import cuda_kernels as ck
+    from ballista_tpu_torch.scheduler.process import SchedulerProcess
+    from ballista_tpu_torch.testing.standalone_stats import last_job
+    from ballista_tpu_torch.testing.tpchgen import register_tpch
+
+    sched = SchedulerProcess(bind_host="127.0.0.1", port=0, rest_port=-1, flight_proxy_port=-1)
+    sched.start()
+    addr = f"127.0.0.1:{sched.port}"
+    work = os.path.join(REMOTE_DIR, "serving")
+    shutil.rmtree(work, ignore_errors=True)
+    ex = transport = sub = None
+    out = {"query": "serving_remote"}
+    try:
+        ex = ExecutorProcess(addr, bind_host="127.0.0.1", external_host="127.0.0.1",
+                             engine="tpu", device_ordinal=0, flight_impl="python", work_dir=work)
+        ex.start()
+        cfg = {**SERVING_CONFIG, "ballista.serving.result.cache.enabled": True}
+        ctx = SessionContext.remote(addr, BallistaConfig(cfg))
+        register_tpch(ctx, q4_dir)
+        stmt = next(s for s in serving_statements() if s[0] == "q4")
+        ps = ctx.prepare(stmt[1])
+        execs = []
+        for tag, text in (("a", stmt[1]), ("b", stmt[2])):
+            before = dict(ck.LAUNCHES)
+            t0 = time.time()
+            tbl = ps.execute(_lift_values(ctx, text))
+            wall = time.time() - t0
+            compare_answers(tbl, ORACLE.keyed(("serving", "q4", tag))[0], f"q4 remote {tag}")
+            device = _job_device([last_job(sched.scheduler)])
+            _hold_device(f"q4 remote {tag}", device)
+            if ck.LAUNCHES["masked_group_reduce"] - before["masked_group_reduce"] < 1:
+                raise AssertionError(f"q4 remote {tag}: no masked_group_reduce launch")
+            execs.append({"params": tag, "wall_s": wall, "device_nodes": device})
+        ps.close()
+        out["q4"] = execs
+        sps = ctx.prepare(Q1_COUNT_SQL)
+        sub = sps.subscribe()
+        compare_answers(sub.next(timeout=300), ORACLE.keyed(("serving", "q1_count", 0))[0],
+                        "q1_count remote base")
+        delta = _lineitem_delta(delta_dirs[0], SERVING_SMALL_DELTA_ROWS)
+        ctx.append("lineitem", delta)
+        t_ret = time.time()
+        pushed = sub.next(timeout=300)
+        out["append_to_push_s"] = time.time() - t_ret
+        compare_answers(pushed, ORACLE.keyed(("serving", "q1_count", "small_delta"))[0],
+                        "q1_count remote delta")
+        inc = sched.scheduler.serving.snapshot()["incremental"]
+        out["delta_rows"], out["maintained"] = delta.num_rows, inc["maintained"]
+        out["incremental_modes"] = list(inc["modes"].values())
+        sub.close()
+        sub = None
+        sps.close()
+        scheduler = sched.scheduler
+        sid = scheduler.sessions.create_or_update(ctx.config.to_key_value_pairs(),
+                                                  "serving-direct")
+        transport = FlightLeaseTransport()
+        d = DirectDispatcher(scheduler, transport, sid, slots=1)
+        d.prepare(DIRECT_SQL)
+        # the lease takes the executor's one slot: wait for the last job's
+        # task status to hand it back
+        deadline = time.time() + 30
+        while not any(e.free_slots for e in scheduler.executors.alive_executors()):
+            if time.time() > deadline:
+                raise AssertionError("the executor's slot never came back")
+            time.sleep(0.05)
+        direct = []
+        for params in DIRECT_PARAMS[:2]:
+            t0 = time.time()
+            st = d.execute(params)
+            tbl = _sorted_rows(fetch_job_results(st, ctx.config))
+            if not st.get("direct_dispatch"):
+                raise AssertionError(f"remote direct {params}: demoted ({d.stats})")
+            if not tbl.equals(_sorted_rows(ORACLE.keyed(("serving", "direct", params[0]))[0])):
+                raise AssertionError(f"remote direct {params}: not the engine=cpu answer")
+            direct.append({"params": list(params), "wall_s": time.time() - t0})
+        scheduler.revoke_executor_lease(d._lease.lease_id)
+        out["direct"] = direct
+        out["dispatcher"] = dict(d.stats)
+        out["lease_dispatch_rpcs"] = ex.flight_server.stats["lease_dispatch"]
+    finally:
+        if sub is not None:
+            sub.close()
+        if transport is not None:
+            transport.close()
+        if ex is not None:
+            ex.shutdown()
+            shutil.rmtree(work, ignore_errors=True)
+        sched.shutdown()
+    log(f"remote serving: q4 {[round(e['wall_s'], 4) for e in out['q4']]}, push "
+        f"{out['append_to_push_s']:.4f}s, direct {[round(r['wall_s'], 4) for r in out['direct']]}")
+    return out
+
+
+def serving_phase(q4_dir: str, delta_dirs: list, busy_ok: bool, launches: dict,
+                  emit) -> None:
+    """Phase 12: (a) prepared statements, local and standalone; (b)
+    continuous queries; (c) direct dispatch; (d) the remote mode. The
+    launch counts are set to 0 just before each part and read just after
+    it, into `launches`."""
+    from ballista_tpu_torch.client.context import SessionContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.ops.cuda import cuda_kernels as ck
+    from ballista_tpu_torch.testing.tpchgen import register_tpch
+
+    stmts = serving_statements()
+    for mode in ("local", "standalone"):
+        ck.reset_launches()
+        for stmt in stmts:
+            cfg = BallistaConfig({**SERVING_CONFIG, **stmt[3]})
+            ctx = (SessionContext.standalone(cfg, num_executors=1, vcores=4)
+                   if mode == "standalone" else SessionContext(cfg))
+            try:
+                register_tpch(ctx, q4_dir)
+                scheduler = ctx._ensure_cluster().scheduler if mode == "standalone" else None
+                r = _prepared_cell(mode, ctx, stmt, scheduler, busy_ok)
+            finally:
+                ctx.shutdown()
+            emit(r)
+        launches[f"serving_{mode}"] = dict(ck.LAUNCHES)
+        for kernel in ("masked_group_reduce", "hash_probe", "dict_filter"):
+            if ck.LAUNCHES[kernel] < 1:
+                raise AssertionError(f"serving {mode}: {kernel} never launched")
+    for key, cell in (("serving_subscriptions", lambda: _subscriptions_cell(
+                          q4_dir, delta_dirs, busy_ok)),
+                      ("serving_direct", lambda: _direct_cell(q4_dir)),
+                      ("serving_remote", lambda: _remote_serving_cell(q4_dir, delta_dirs))):
+        ck.reset_launches()
+        r = cell()
+        r["launches"] = launches[key] = dict(ck.LAUNCHES)
+        emit(r)
+
+
 # ---------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -3104,6 +3711,10 @@ def main(argv=None) -> int:
         ds_small = start_generate(ds_small_dir, TPCDS_SMALL_SCALE, "tpcds")
         ds_big = start_generate(ds_big_dir, TPCDS_BIG_SCALE, "tpcds")
         procs += [ds_small, ds_big]
+        delta_dirs = [os.path.join(args.data_dir, f"delta{seed}") for seed in SERVING_DELTA_SEEDS]
+        deltas = [start_generate(d, SERVING_DELTA_SCALE, f"delta{seed}")
+                  for d, seed in zip(delta_dirs, SERVING_DELTA_SEEDS)]
+        procs += deltas
 
         tb = time.time()
         build.build_all()
@@ -3118,7 +3729,7 @@ def main(argv=None) -> int:
                  + sort_family_phase(dev, busy_ok))
         log(f"kernel phase done at {time.time() - t0:.1f}s")
 
-        # the engine=cpu answers of phases 4-10 while --scale's data is
+        # the engine=cpu answers of phases 4-12 while --scale's data is
         # generated: TPC-DS at TPCDS_SMALL_SCALE (with the CPU form's
         # claims) first, then the --q4-scale data's and TPC-DS (b)'s,
         # heaviest first
@@ -3129,6 +3740,10 @@ def main(argv=None) -> int:
                        if which == "small"] + [(_query_sql(q), q4_dir) for q in (5, 12, 1, 4)])
         wait_generate(ds_big, ds_big_dir, TPCDS_BIG_SCALE, "tpcds")
         ORACLE.submit_tpcds(TPCDS_BIG_QUERIES, ds_big_dir)
+        # phase 12's answers last in this pool: --scale's go to the next
+        for proc, d, seed in zip(deltas, delta_dirs, SERVING_DELTA_SEEDS):
+            wait_generate(proc, d, SERVING_DELTA_SCALE, f"delta{seed}")
+        submit_serving_oracle(q4_dir, delta_dirs)
         log(f"TPC-DS ready at {time.time() - t0:.1f}s")
         # phase 10 (a) on the card meanwhile, each query once as its
         # answer comes in; the launch counts are set to 0 just before each
@@ -3308,6 +3923,15 @@ def main(argv=None) -> int:
             print(json.dumps(r), flush=True)
             log(f"TPC-DS q{q} at scale {TPCDS_BIG_SCALE:g} done at {time.time() - t0:.1f}s")
         log(f"TPC-DS (b) took {time.time() - t10:.1f}s, done at {time.time() - t0:.1f}s")
+        # the serving surface: prepared statements, continuous queries,
+        # direct dispatch, the remote mode; the launch counts are set to 0
+        # just before each part and read just after it
+        t12 = time.time()
+        _fresh_card()
+        # reached late, it keeps every check and drops its traced runs
+        serving_phase(q4_dir, delta_dirs, busy_ok and warm_runs(t0, "serving") > 1,
+                      launches, lambda r: emit(r, args.q4_scale))
+        log(f"serving phase took {time.time() - t12:.1f}s, done at {time.time() - t0:.1f}s")
         path_of = {"masked_group_reduce": (4,),
                    "hash_probe": (5, 21, "q21_large", "q5_grace", "q5_small"),
                    "dict_filter": (12, "q12_small"),
@@ -3317,14 +3941,17 @@ def main(argv=None) -> int:
         remote = [k for k in launches if str(k).startswith("remote_")]
         tpcds = [k for k in launches if str(k).startswith("tpcds_")]
         daemon = [k for k in launches if str(k).startswith("daemon_")]
+        serving = [k for k in launches if str(k).startswith("serving_")]
         for krec in krecs:
             krec["standalone_launches"] = sum(launches[q][krec["name"]] for q in standalone)
             krec["remote_launches"] = sum(launches[q][krec["name"]] for q in remote)
             krec["tpcds_launches"] = sum(launches[q].get(krec["name"], 0) for q in tpcds)
             krec["daemon_launches"] = sum(launches[q].get(krec["name"], 0) for q in daemon)
+            krec["serving_launches"] = sum(launches[q].get(krec["name"], 0) for q in serving)
             krec["launches"] = (sum(launches[q][krec["name"]] for q in path_of[krec["name"]])
                                 + krec["standalone_launches"] + krec["remote_launches"]
-                                + krec["tpcds_launches"] + krec["daemon_launches"])
+                                + krec["tpcds_launches"] + krec["daemon_launches"]
+                                + krec["serving_launches"])
             if krec["launches"] < 1:
                 raise AssertionError(f"the main path launched {krec['name']} no time")
         log(f"path phase done at {time.time() - t0:.1f}s")

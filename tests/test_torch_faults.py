@@ -277,3 +277,65 @@ def test_build_with_repeated_field_names_declines():
                            **{"ballista.executor.engine": "cpu"}).sql(sql).collect())
     stages = [n for n in iter_plan(phys) if isinstance(n, TpuStageExec)]
     assert stages and all(s.tpu_count == 0 and s.fallback_count >= 1 for s in stages)
+
+
+@pytest.mark.parametrize("build", ["memory", "parquet"])
+def test_build_over_other_data_of_the_same_shape_is_not_reused(build, tmp_path):
+    # C18: a join build is cached under the probe table and the stage's
+    # display, which names a memory scan by its row count and a parquet
+    # scan by its table name. The dimension re-registered with other rows
+    # of that shape was served the first build's payloads (both packages);
+    # the port keys each build on the tables it reads
+    import pyarrow.parquet as pq
+
+    from ballista_tpu_torch.ops.cuda.stage_compiler import TpuStageExec
+
+    # the probe side a parquet table: its cache key outlives one plan
+    fact = pa.table({"k": _i64([1, 2, 3, 4] * 10), "v": _i64(list(range(40)))})
+    (tmp_path / "t").mkdir()
+    pq.write_table(fact, str(tmp_path / "t" / "t.parquet"))
+    sql = ("SELECT u.g, count(*) AS c, sum(t.v) AS s FROM t JOIN u ON t.k = u.k "
+           "GROUP BY u.g ORDER BY u.g")
+    ctx = _ctx("ballista_tpu_torch", {})
+    ctx.register_parquet("t", str(tmp_path / "t"))
+    for i, g in enumerate(([1, 1, 2, 2], [1, 2, 2, 2], [3, 3, 3, 1])):
+        dim = pa.table({"k": _i64([1, 2, 3, 4]), "g": _i64(g)})
+        if build == "memory":
+            ctx.register_arrow_table("u", dim)
+        else:  # a new file under its own directory each time
+            path = tmp_path / f"u{i}"
+            path.mkdir()
+            pq.write_table(dim, str(path / "u.parquet"))
+            ctx.register_parquet("u", str(path))
+        got, phys = _run(ctx, sql)
+        cpu = _ctx("ballista_tpu_torch", {"t": fact, "u": dim},
+                   **{"ballista.executor.engine": "cpu"})
+        assert got.equals(cpu.sql(sql).collect()), g
+        stages = [n for n in iter_plan(phys) if isinstance(n, TpuStageExec)]
+        assert stages and all(s.tpu_count == 1 and s.fallback_count == 0 for s in stages)
+
+
+def test_min_max_over_strings_declines():
+    # C21: the device stage reduced a dictionary-coded string column's
+    # codes and decoded the code as the answer ('2' for 'z'; both
+    # packages); the port declines MIN and MAX over a string column and
+    # the CPU engine answers
+    from ballista_tpu_torch.ops.cuda.stage_compiler import TpuStageExec
+
+    tables = {"t": pa.table({"k": ["a", "b", "a", None, "c", "b"],
+                             "s": ["x", "y", "z", "x", None, "y"],
+                             "v": _i64([1, 2, 3, 4, 5, 6])})}
+    sql = ("SELECT k, max(s) AS hi, min(s) AS lo, sum(v) AS sv FROM t "
+           "GROUP BY k ORDER BY k")
+    got, phys = _run(_ctx("ballista_tpu_torch", tables), sql)
+    want = _ctx("ballista_tpu_torch", tables,
+                **{"ballista.executor.engine": "cpu"}).sql(sql).collect()
+    assert got.equals(want)
+    assert got.column("hi").to_pylist() == ["z", "y", None, "x"]
+    stages = [n for n in iter_plan(phys) if isinstance(n, TpuStageExec)]
+    assert stages and all(s.tpu_count == 0 and s.fallback_count >= 1 for s in stages)
+    # a numeric MIN and MAX stay on the device
+    got, phys = _run(_ctx("ballista_tpu_torch", tables),
+                     "SELECT k, max(v) AS hi, min(v) AS lo FROM t GROUP BY k ORDER BY k")
+    stages = [n for n in iter_plan(phys) if isinstance(n, TpuStageExec)]
+    assert stages and all(s.tpu_count == 1 and s.fallback_count == 0 for s in stages)

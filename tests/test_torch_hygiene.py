@@ -4,7 +4,8 @@ The port stands alone: no file of it, nor chip_smoke.py, imports jax,
 jaxlib or any module of the JAX package; every `ballista_tpu_torch`
 import names a module the port has; running a query through the port,
 in local mode, in the standalone mode (scheduler, executors, shuffle
-files, Flight) and in the remote mode (daemons over gRPC), loads nothing
+files, Flight, the serving surface and direct dispatch) and in the remote
+mode (daemons over gRPC), loads nothing
 of the JAX package; importing the daemons, the client and the device
 daemon's client side makes no torch.cuda call (an executor daemon binds its card before its first
 one); and without CUDA the device engine raises unless the CPU was asked
@@ -54,6 +55,7 @@ def test_port_sources_found():
     srcs = _sources()
     assert len(srcs) > 40
     assert any(p.endswith(os.path.join("ops", "cuda", "stage_compiler.py")) for p in srcs)
+    assert any(p.endswith(os.path.join("client", "direct.py")) for p in srcs)
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
@@ -77,6 +79,7 @@ def test_query_loads_nothing_of_the_jax_package(tpch_dir):
     code = f"""
 import sys
 sys.path.insert(0, {ROOT!r})
+import pyarrow as pa
 from ballista_tpu_torch.ops.cuda import runtime
 runtime.use_cpu()
 from ballista_tpu_torch.client.context import SessionContext
@@ -96,6 +99,22 @@ register_tpch(sa, {tpch_dir!r})
 q3 = open({os.path.join(ROOT, "benchmarks", "tpch", "queries", "q3.sql")!r}).read()
 assert sa.sql(q3).collect().num_rows > 0
 assert sa._cluster.flight_server.stats["bytes_served"] > 0
+# the serving surface: a prepared statement, an append, a continuous
+# query, and direct dispatch over a lease
+ps = sa.prepare("select count(*) n from nation where n_regionkey = 1")
+assert ps.execute([2]).num_rows == 1
+sub = ps.subscribe([2])
+assert sub.next(timeout=30).num_rows == 1
+sa.append("nation", pa.table({{"n_nationkey": [99], "n_name": ["X"], "n_regionkey": [2],
+                               "n_comment": ["x"]}}))
+assert sub.next(timeout=30).column("n").to_pylist() == [6]
+sub.close()
+from ballista_tpu_torch.client.direct import DirectDispatcher, LocalLeaseTransport
+sched = sa._cluster.scheduler
+sid = sched.sessions.create_or_update(sa.config.to_key_value_pairs(), str(sa.session_id))
+d = DirectDispatcher(sched, LocalLeaseTransport(sa._cluster.executors), sid)
+d.prepare("select r_name from region where r_regionkey < 3")
+assert d.execute((2,))["direct_dispatch"] is True
 sa.shutdown()
 # the remote mode: scheduler and executor daemons over gRPC on 127.0.0.1
 from ballista_tpu_torch.executor.executor_process import ExecutorProcess
@@ -142,6 +161,7 @@ import ballista_tpu_torch.executor.executor_process
 import ballista_tpu_torch.scheduler.process
 import ballista_tpu_torch.client.remote
 import ballista_tpu_torch.client.context
+import ballista_tpu_torch.client.direct
 import ballista_tpu_torch.engine.cuda_engine
 import ballista_tpu_torch.ops.cuda.stage_compiler
 import ballista_tpu_torch.ops.cuda.cuda_kernels

@@ -405,15 +405,26 @@ def test_heartbeat_carries_the_device_gauges(clusters, runs):
     assert gauges["tpu_persist_cache_hits"] <= gauges["tpu_persist_cache_requests"]
 
 
-def test_append_and_prepare_raise_in_remote_mode(clusters):
-    from ballista_tpu_torch.client.context import SessionContext
-
+def test_append_and_prepare_raise_in_remote_mode(clusters, tpch_dir):
+    # AppendData and PrepareStatement / ExecutePrepared over gRPC answer as
+    # local mode does; the appended table is this test's own, so the
+    # module's other queries over nation see no delta
     _, addr, _ = clusters["port"]
-    ctx = SessionContext.remote(addr)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        ctx.append("nation", pa.table({"n_nationkey": [99]}))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        ctx.prepare("select * from nation where n_nationkey = 1")
+    rows = pa.table({"n_nationkey": [99], "n_name": ["ATLANTIS"], "n_regionkey": [0],
+                     "n_comment": ["appended"]})
+    sql = "select n_regionkey, count(*) c from nation_a9 group by n_regionkey order by n_regionkey"
+    answers = []
+    for ctx in (_remote_ctx("port", addr, tpch_dir), _local_ctx(tpch_dir)):
+        ctx.register_parquet("nation_a9", os.path.join(tpch_dir, "nation"))
+        out = ctx.append("nation_a9", rows)
+        assert out["table"] == "nation_a9" and out["rows"] == 1
+        ps = ctx.prepare("select n_name from nation_a9 where n_nationkey = 1")
+        answers.append((ctx.sql(sql).collect(), ps.execute([99]), ps.execute([2])))
+        ps.close()
+    for got, want in zip(*answers):
+        assert got.equals(want)
+    assert answers[0][0].column("c").to_pylist()[0] == 6
+    assert answers[0][1].column("n_name").to_pylist() == ["ATLANTIS"]
 
 
 # -- real daemons -----------------------------------------------------------

@@ -281,24 +281,32 @@ def test_mesh_refused_at_planning(tpch_dir):
 
 
 def test_modes_not_ported_raise(tpch_dir):
-    # the remote mode is ported; what still raises, in the standalone and
-    # the remote mode alike, is the serving surface through the scheduler
-    # (ROADMAP A9): appends and prepared statements. Neither call reaches
-    # the scheduler, so the remote context needs no running one here.
-    from ballista_tpu_torch.client.context import SessionContext
+    # appends and prepared statements go through the scheduler in the
+    # standalone mode and answer as local mode does; the appended table is
+    # one of this test's own, so the module's other queries see no delta
+    import os
 
-    remote = SessionContext.remote("localhost:50050")
-    assert remote.mode == "remote" and remote._remote is None
-    ctx = _ctx(tpch_dir)
-    try:
-        for c in (ctx, remote):
-            with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-                c.append("nation", pa.table({"n_nationkey": [99]}))
-            with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-                c.prepare("select n_name from nation where n_nationkey = 1")
-        assert remote._remote is None
-    finally:
-        ctx.shutdown()
+    rows = pa.table({"n_nationkey": [99], "n_name": ["ATLANTIS"], "n_regionkey": [0],
+                     "n_comment": ["appended"]})
+    sql = "select n_regionkey, count(*) c from nation_a9 group by n_regionkey order by n_regionkey"
+    stmt = "select n_name from nation_a9 where n_nationkey = 1"
+    answers = []
+    for standalone in (True, False):
+        ctx = _ctx(tpch_dir, standalone=standalone)
+        try:
+            ctx.register_parquet("nation_a9", os.path.join(tpch_dir, "nation"))
+            out = ctx.append("nation_a9", rows)
+            assert out["table"] == "nation_a9" and out["rows"] == 1
+            ps = ctx.prepare(stmt)
+            assert ps.num_params == 1
+            answers.append((ctx.sql(sql).collect(), ps.execute([99]), ps.execute([2])))
+            ps.close()
+        finally:
+            ctx.shutdown()
+    for got, want in zip(*answers):
+        assert got.equals(want)
+    assert answers[0][0].column("c").to_pylist()[0] == 6
+    assert answers[0][1].column("n_name").to_pylist() == ["ATLANTIS"]
 
 
 def test_device_error_fails_the_job(tpch_dir, monkeypatch):
