@@ -1243,6 +1243,7 @@ _ENV_KNOBS: list[EnvKnob] = [
         int, 0,
     ),
     EnvKnob(
+        # analysis: ignore[knob-sync] read by bench.py, the JAX package's harness; the port has none yet
         "BALLISTA_BENCH_DAEMON_CHAOS",
         "bench.py opt-in: run dev/daemon_chaos_exercise.py --quick in the "
         "device leg as a sanity probe before the timed iterations (the "
@@ -1251,6 +1252,7 @@ _ENV_KNOBS: list[EnvKnob] = [
         bool, False,
     ),
     EnvKnob(
+        # analysis: ignore[knob-sync] read by bench.py, the JAX package's harness; the port has none yet
         "BALLISTA_BENCH_LIFECYCLE",
         "bench.py opt-in: run dev/lifecycle_exercise.py --quick (graceful "
         "drain / disk_full / rolling-restart smoke, docs/lifecycle.md) and "

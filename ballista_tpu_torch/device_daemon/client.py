@@ -56,6 +56,7 @@ _CACHE_LOCK = threading.Lock()
 _ATTACHED: dict[str, tuple["DaemonClient", int, str]] = {}
 # socket path → the daemon process this process spawned last for it (the
 # respawn leg of the ladder), so its owner can stop it and read its exit
+# analysis: ignore[bounded-cache] one entry per daemon socket this process spawns for; bounded by deployment topology (typically 1)
 _SPAWNED: dict[str, subprocess.Popen] = {}
 
 # a stage fingerprint gets ONE respawn-and-retry; the second crash

@@ -28,7 +28,9 @@ SOURCES = ("masked_group_reduce", "hash_probe", "dict_filter", "segmented_sort",
            "topk_select", "segmented_scan")
 
 _lock = threading.Lock()
+# analysis: ignore[bounded-cache] one library per kernel source: at most len(SOURCES)
 _libs: dict[str, ctypes.CDLL] = {}
+# analysis: ignore[bounded-cache] one log per kernel source: at most len(SOURCES)
 LOGS: dict[str, str] = {}  # per source: nvcc's output (ptxas register/smem report)
 
 

@@ -64,6 +64,7 @@ import torch
 
 from ballista_tpu_torch.ops.cuda import hbm
 from ballista_tpu_torch.ops.cuda.kernels import take
+from ballista_tpu_torch.utils.lru import LruDict
 
 MAX_GROUPS = 4096  # the Pallas kernel's multi-tile ceiling (32 x 128 lanes)
 MAX_SORT_LANES = 1 << 20  # absolute ceiling of the sort family; the cost model caps lower
@@ -71,8 +72,9 @@ MAX_SORT_LANES = 1 << 20  # absolute ceiling of the sort family; the cost model 
 LAUNCHES = {"masked_group_reduce": 0, "hash_probe": 0, "dict_filter": 0,
             "segmented_sort": 0, "topk_select": 0, "segmented_scan": 0}
 # hash_probe's launches by (P, N, T, regime, cluster size): which regime
-# served which table on a path
-HASH_PROBE_LAUNCHES: dict = {}
+# served which table on a path; the shapes grow with the tables a
+# long-lived executor or daemon probes, so the oldest shape goes first
+HASH_PROBE_LAUNCHES = LruDict(1024)
 _count_lock = threading.Lock()
 
 
@@ -117,6 +119,7 @@ def masked_group_reduce_plain(vals, gid, mask, num_groups: int):
     return sums, cnts
 
 
+# analysis: ignore[bounded-cache] one entry per C function of the six kernel libraries
 _fns: dict = {}
 _lib_lock = threading.Lock()
 _VP = ctypes.c_void_p
@@ -138,6 +141,7 @@ def _bind(name: str, fn: str, argtypes: list):
         return f
 
 
+# analysis: ignore[bounded-cache] one entry per card ordinal of this host
 _SMS: dict = {}
 
 
@@ -309,9 +313,13 @@ def _hp_query(name: str, fn, *args) -> int:
     return out.value
 
 
+# analysis: ignore[bounded-cache] one entry per card ordinal of this host
 _HP_OPTIN: dict = {}
+# analysis: ignore[bounded-cache] one entry per (card ordinal, staged regime): three regimes a card
 _HP_PREPARED: set = set()
-_HP_CTAS: dict = {}
+# the grid of each (card, table length, regime): table lengths grow with
+# the workload
+_HP_CTAS = LruDict(1024)
 
 
 def hash_probe_smem_optin(dev) -> int:

@@ -200,7 +200,8 @@ def resolve_hbm_budget(config) -> int:
 # OOM hints: a stage that ran out of device memory pre-plans grace on retry
 
 _HINT_LOCK = threading.Lock()
-_OOM_HINTS: set[str] = set()  # drained by consume_oom_hint: one per in-flight retry
+# analysis: ignore[bounded-cache] one hint per retry in flight, drained by consume_oom_hint
+_OOM_HINTS: set[str] = set()
 # cumulative, process-wide (mirrored into RUN_STATS like the spill
 # counters: a later clean re-run of the same stage must not erase the
 # evidence that a retry ran)

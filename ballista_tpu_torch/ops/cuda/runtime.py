@@ -101,8 +101,9 @@ def device(ordinal: int = -1) -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; call "
-            "ballista_tpu_torch.ops.cuda.runtime.use_cpu() to run the device "
-            "engine on the CPU explicitly")
+            "ballista_tpu_torch.ops.cuda.runtime.use_cpu(), or set "
+            f"{PLATFORM_ENV}=cpu in the process's environment, to run the "
+            "device engine on the CPU explicitly")
     n = torch.cuda.device_count()
     idx = ordinal if ordinal is not None and ordinal >= 0 else 0
     if n == 1 and bound_ordinal() >= 0:

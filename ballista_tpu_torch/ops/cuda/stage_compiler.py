@@ -441,6 +441,12 @@ class DeviceTableCache:
                 self.fills += 1
             RUN_STATS.set("fill_s", round(time.time() - t0, 3), rec=stats)
             RUN_STATS.set("device_bytes", dt.nbytes, rec=stats)
+            if getattr(scan, "mem_token", None) is not None:
+                # memory-backed fill = ingested delta rows riding a grafted
+                # scan (serving/incremental.py), surfaced so operators can
+                # watch delta volume reach the device tier
+                RUN_STATS.set("delta_fill_rows",
+                              int(sum(int(r) for r in dt.part_rows)), rec=stats)
             victims = []
             with self._lock:
                 total = sum(v.nbytes for v in self._cache.values())

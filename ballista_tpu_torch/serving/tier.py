@@ -30,7 +30,7 @@ from ballista_tpu_torch.config import (
     SERVING_RESULT_MAX_BYTES,
     BallistaConfig,
 )
-from ballista_tpu_torch.ops.cuda.stage_compiler import LruDict
+from ballista_tpu_torch.utils.lru import LruDict
 from ballista_tpu_torch.plan.physical import ExecutionPlan
 
 

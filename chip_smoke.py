@@ -220,12 +220,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
    card 0 with the Python Flight server: q4 prepared with A and B, an
    append of 20,000 rows pushed to q1's count subscription, and two
    executions over FlightLeaseTransport, each equal to engine=cpu;
-13. print one JSON line of kernel numbers (each kernel's launches on every
-   path above, the standalone and remote modes', TPC-DS's, the daemon's
-   and the serving phase's apart as well), the card line, and last
-   {"ok": true, "device": {...}}.
+13. (run after 12) the SQL CLI, `python -m ballista_tpu_torch.cli --engine
+   tpu -f FILE` as a process, at --q4-scale, phases 4-6's settings as SET
+   statements: (a) remote (--host/--port) against an in-process
+   SchedulerProcess and one ExecutorProcess pinned to card 0: CREATE
+   EXTERNAL TABLE for q5's six tables, q4, q5, then SET
+   ballista.tpu.fusion.mode = fused_pallas and q12, each run once; this
+   process counts the executor's launches (masked_group_reduce, hash_probe
+   at least twice, dict_filter); (b) the CLI's default standalone mode, q4
+   and its EXPLAIN ANALYZE: every device node device_runs >= 1 and
+   cpu_fallbacks=0; (c) over (a)'s scheduler REST, the TUI's RestClient
+   and render layer draw one headless frame listing (a)'s jobs completed,
+   with their stages. Each printed answer equal to the engine=cpu answer
+   already held (ints and strings exact, floats within rtol 1e-9 as
+   printed), no `Error:` line, exit 0; each statement's printed Elapsed
+   and each process's wall recorded;
+14. print one JSON line of kernel numbers (each kernel's launches on every
+   path above, the standalone and remote modes', TPC-DS's, the daemon's,
+   the serving phase's and the CLI's apart as well), the card line, and
+   last {"ok": true, "device": {...}}.
 
-For the run's time limit, the engine=cpu answers of phases 4-12 (with
+For the run's time limit, the engine=cpu answers of phases 4-13 (with
 phase 10's CPU-form claims) are computed in ORACLE_WORKERS child
 processes while the data is generated (as many again for --scale's), and
 all of them are in before the first timed run: no timed window shares the
@@ -1488,7 +1503,7 @@ def q21_large_check(data_dir: str, scale: float, dev, busy_ok: bool, reference,
     ck.reset_launches()
     walls, run_probes, stage_recs = [], [], []
     for i in range(1 + warm):  # cold, then best of `warm`
-        before = dict(ck.HASH_PROBE_LAUNCHES)
+        before = dict(ck.HASH_PROBE_LAUNCHES.items())
         tbl, wall, recs = run(ctx)
         probes = {k: v - before.get(k, 0) for k, v in ck.HASH_PROBE_LAUNCHES.items()
                   if v != before.get(k, 0)}
@@ -3668,6 +3683,188 @@ def serving_phase(q4_dir: str, delta_dirs: list, busy_ok: bool, launches: dict,
 
 # ---------------------------------------------------------------- main
 
+# phase 13: the SQL CLI as a process on the card, at --q4-scale. Every CLI
+# file opens with the settings phases 4-6 run under, as SET statements; (a)
+# is remote, against an in-process cluster whose executor this process
+# counts the launches of; (b) the CLI's default standalone mode
+CLI_DIR = os.path.join(ROOT, "build", "cli")  # the CLI's statement files
+CLI_TABLES = ("customer", "orders", "lineitem", "supplier", "nation", "region")
+CLI_REMOTE = (4, 5, "fused_pallas", 12)
+# the kernel (a) must launch, with its least count, over the file's runs
+CLI_KERNELS = {"masked_group_reduce": 1, "hash_probe": 2, "dict_filter": 1}
+CLI_TIMEOUT_S = 240
+
+
+def _cli_statements(data_dir: str, tables, items) -> list:
+    """(statement, kind) pairs: kind "set", "create", a query number, or
+    ("explain", q)."""
+    out = [(f"SET {k} = {str(v).lower()};", "set") for k, v in QUERY_CONFIG.items()
+           if k != "ballista.executor.engine"]
+    out += [(f"CREATE EXTERNAL TABLE {t} STORED AS PARQUET "
+             f"LOCATION '{os.path.join(data_dir, t)}';", "create") for t in tables]
+    for it in items:
+        if it == "fused_pallas":
+            out.append(("SET ballista.tpu.fusion.mode = fused_pallas;", "set"))
+        elif isinstance(it, tuple):
+            out.append(("EXPLAIN ANALYZE " + _query_sql(it[1]).strip(), it))
+        else:
+            out.append((_query_sql(it).strip(), it))
+    return out
+
+
+def _run_cli(name: str, args: list, statements: list) -> dict:
+    """Run the CLI as a process over `statements` (one file); fails on a
+    nonzero exit, an `Error:` line, or a statement that printed no Elapsed.
+    Returns each statement's printed block and Elapsed, and the wall."""
+    import re
+
+    os.makedirs(CLI_DIR, exist_ok=True)
+    path = os.path.join(CLI_DIR, f"{name}.sql")
+    with open(path, "w") as f:
+        f.write("\n".join(stmt for stmt, _ in statements) + "\n")
+    env = {k: v for k, v in os.environ.items() if k != "BALLISTA_TORCH_PLATFORM"}
+    t = time.time()
+    p = subprocess.run([sys.executable, "-m", "ballista_tpu_torch.cli", "--engine", "tpu",
+                        *args, "-f", path], capture_output=True, text=True,
+                       timeout=CLI_TIMEOUT_S, cwd=ROOT, env=env)
+    wall = time.time() - t
+    with open(os.path.join(CLI_DIR, f"{name}.stderr"), "w") as f:
+        f.write(p.stderr)
+    errors = [ln for ln in p.stderr.splitlines() if ln.startswith("Error:")]
+    if p.returncode != 0 or errors:
+        raise AssertionError(f"cli {name}: exit {p.returncode}, {errors[:3]}; "
+                             f"stderr tail {p.stderr[-2000:]}")
+    elapsed = re.compile(r"^Elapsed (\d+\.\d+) seconds\.$")
+    blocks, cur = [], []
+    for ln in p.stdout.splitlines():
+        m = elapsed.match(ln)
+        if m:
+            blocks.append(("\n".join(cur), float(m.group(1))))
+            cur = []
+        else:
+            cur.append(ln)
+    if len(blocks) != len(statements):
+        raise AssertionError(f"cli {name}: {len(blocks)} statements printed an Elapsed "
+                             f"line of {len(statements)}; stdout tail {p.stdout[-2000:]}")
+    return {"blocks": blocks, "wall_s": round(wall, 3)}
+
+
+def _same_printed(got: str, want: str, label: str) -> None:
+    """The CLI's printed answer against the engine=cpu answer printed the
+    same way: ints and strings exact, floats within rtol 1e-9 as printed."""
+    import math
+
+    g, w = got.splitlines(), want.splitlines()
+    if len(g) != len(w):
+        raise AssertionError(f"{label}: {len(g)} printed lines != {len(w)}:\n{got}\n--\n{want}")
+    for a, b in zip(g, w):
+        ta, tb = a.split(), b.split()
+        if len(ta) != len(tb):
+            raise AssertionError(f"{label}: {a!r} != {b!r}")
+        for x, y in zip(ta, tb):
+            if x == y:
+                continue
+            try:
+                fx, fy = float(x), float(y)
+            except ValueError:
+                raise AssertionError(f"{label}: {a!r} != {b!r}") from None
+            ints = x.lstrip("-").isdigit() and y.lstrip("-").isdigit()
+            if ints or not math.isclose(fx, fy, rel_tol=1e-9):
+                raise AssertionError(f"{label}: {x} != {y} in {a!r}")
+
+
+def _hold_cli_answers(name: str, statements: list, run: dict, answers: dict) -> dict:
+    from ballista_tpu_torch.cli.main import format_table
+
+    out = {}
+    for (stmt, kind), (text, el) in zip(statements, run["blocks"]):
+        if isinstance(kind, int):
+            _same_printed(text, format_table(answers[kind]), f"cli {name} q{kind}")
+            out[f"q{kind}"] = el
+    return out
+
+
+def _device_nodes_of(text: str) -> list:
+    """(node, device_runs, cpu_fallbacks) for every device node of an
+    EXPLAIN ANALYZE the CLI printed."""
+    import re
+
+    return [(n, int(r), int(f)) for n, r, f in re.findall(
+        r"(Tpu\w+Exec): .*? device_runs=(\d+) cpu_fallbacks=(\d+)", text)]
+
+
+def cli_phase(q4_dir: str, answers: dict, launches: dict) -> list:
+    """Phase 13; `answers`: the engine=cpu answer tables of q4, q5 and q12
+    at --q4-scale. Sets launches["cli_remote"]."""
+    from ballista_tpu_torch.cli import tui
+    from ballista_tpu_torch.ops.cuda import cuda_kernels
+
+    recs = []
+    # (a) remote: the CLI's statements run in this process's executor
+    stmts = _cli_statements(q4_dir, CLI_TABLES, CLI_REMOTE)
+    cluster = start_remote_cluster()
+    sched = cluster[0]
+    try:
+        cuda_kernels.reset_launches()
+        run = _run_cli("remote", ["--host", "127.0.0.1", "--port", str(sched.port)], stmts)
+        counts = launches["cli_remote"] = dict(cuda_kernels.LAUNCHES)
+        probes = _probe_launches()
+        for k, least in CLI_KERNELS.items():
+            if counts[k] < least:
+                raise AssertionError(f"cli remote: {k} launched {counts[k]} times, "
+                                     f"fewer than {least}")
+        elapsed = _hold_cli_answers("remote", stmts, run, answers)
+        rec = {"query": "cli_remote", "statements": len(stmts), "elapsed_s": elapsed,
+               "wall_s": run["wall_s"], "launches": counts, "hash_probe_launches": probes}
+        recs.append(rec)
+        log(f"cli remote: {elapsed}, wall {run['wall_s']} s, launches {counts}")
+        # (c) the TUI over the same scheduler's REST: one headless frame
+        client = tui.RestClient(f"http://127.0.0.1:{sched.rest_port}")
+        state, jobs, execs = client.state(), client.jobs(), client.executors()
+        hist = tui.History()
+        hist.sample(jobs, execs)
+        jobs = tui.sort_jobs(jobs, "queued")
+        frame = (tui.render_header(state, hist) + tui.render_jobs(jobs, 0)
+                 + tui.render_executors(execs, 0))
+        for j in jobs:
+            stages = client.stages(j["job_id"])
+            if j["state"] != "successful" or not stages or \
+                    any(s["state"] != "successful" for s in stages):
+                raise AssertionError(f"tui: job {j['job_id']} {j['state']}, stages "
+                                     f"{[(s['stage_id'], s['state']) for s in stages]}")
+            frame += tui.render_stages(stages)
+        # the remote client submits every statement as a job, SET and
+        # CREATE EXTERNAL TABLE too
+        listed = [j["job_id"] for j in jobs if any(j["job_id"][:12] in ln for ln in frame)]
+        if len(jobs) != len(stmts) or len(listed) != len(stmts):
+            raise AssertionError(f"tui: {len(jobs)} jobs, {len(listed)} listed, "
+                                 f"{len(stmts)} statements ran")
+        for ln in frame:
+            log(f"tui | {ln}")
+        recs.append({"query": "cli_tui", "jobs": len(jobs),
+                     "query_jobs": sum(1 for j in jobs if j["total_stages"] > 1),
+                     "frame_lines": len(frame), "frame": frame})
+    finally:
+        stop_remote_cluster(sched, cluster[2])
+    # (b) the CLI's default standalone mode, in its own process
+    stmts = _cli_statements(q4_dir, ("orders", "lineitem"), (4, ("explain", 4)))
+    run = _run_cli("standalone", [], stmts)
+    elapsed = _hold_cli_answers("standalone", stmts, run, answers)
+    nodes = _device_nodes_of(run["blocks"][-1][0])
+    kinds = {n for n, _r, _f in nodes}
+    if not {"TpuStageExec", "TpuFinalStageExec"} <= kinds or \
+            any(r < 1 or f != 0 for _n, r, f in nodes):
+        raise AssertionError(f"cli standalone: EXPLAIN ANALYZE device nodes {nodes}")
+    elapsed["explain_analyze_q4"] = run["blocks"][-1][1]
+    recs.append({"query": "cli_standalone", "statements": len(stmts), "elapsed_s": elapsed,
+                 "wall_s": run["wall_s"], "device_nodes": len(nodes),
+                 "device_runs": sum(r for _n, r, _f in nodes),
+                 "cpu_fallbacks": sum(f for _n, _r, f in nodes)})
+    log(f"cli standalone: {elapsed}, wall {run['wall_s']} s, {len(nodes)} device nodes "
+        f"without fallback")
+    return recs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=10.0)
@@ -3932,6 +4129,13 @@ def main(argv=None) -> int:
         serving_phase(q4_dir, delta_dirs, busy_ok and warm_runs(t0, "serving") > 1,
                       launches, lambda r: emit(r, args.q4_scale))
         log(f"serving phase took {time.time() - t12:.1f}s, done at {time.time() - t0:.1f}s")
+        # the SQL CLI: the launch counts are set to 0 just before (a)'s
+        # process and read just after it
+        t13 = time.time()
+        _fresh_card()
+        for r in cli_phase(q4_dir, {q: small_answers[q][0] for q in (4, 5, 12)}, launches):
+            emit(r, args.q4_scale)
+        log(f"cli phase took {time.time() - t13:.1f}s, done at {time.time() - t0:.1f}s")
         path_of = {"masked_group_reduce": (4,),
                    "hash_probe": (5, 21, "q21_large", "q5_grace", "q5_small"),
                    "dict_filter": (12, "q12_small"),
@@ -3948,10 +4152,11 @@ def main(argv=None) -> int:
             krec["tpcds_launches"] = sum(launches[q].get(krec["name"], 0) for q in tpcds)
             krec["daemon_launches"] = sum(launches[q].get(krec["name"], 0) for q in daemon)
             krec["serving_launches"] = sum(launches[q].get(krec["name"], 0) for q in serving)
+            krec["cli_launches"] = launches["cli_remote"].get(krec["name"], 0)
             krec["launches"] = (sum(launches[q][krec["name"]] for q in path_of[krec["name"]])
                                 + krec["standalone_launches"] + krec["remote_launches"]
                                 + krec["tpcds_launches"] + krec["daemon_launches"]
-                                + krec["serving_launches"])
+                                + krec["serving_launches"] + krec["cli_launches"])
             if krec["launches"] < 1:
                 raise AssertionError(f"the main path launched {krec['name']} no time")
         log(f"path phase done at {time.time() - t0:.1f}s")

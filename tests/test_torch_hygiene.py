@@ -56,6 +56,8 @@ def test_port_sources_found():
     assert len(srcs) > 40
     assert any(p.endswith(os.path.join("ops", "cuda", "stage_compiler.py")) for p in srcs)
     assert any(p.endswith(os.path.join("client", "direct.py")) for p in srcs)
+    assert any(p.endswith(os.path.join("cli", "main.py")) for p in srcs)
+    assert any(p.endswith(os.path.join("analysis", "core.py")) for p in srcs)
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))

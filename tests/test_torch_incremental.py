@@ -631,3 +631,36 @@ def test_delta_build_of_the_same_size_is_not_reused(tmp_path):
         assert _counters(ctx)["maintained"] == 3
     finally:
         ctx.shutdown()
+
+
+def test_delta_fill_records_the_delta_rows(tables):
+    # C23: a memory-backed fill carries a maintained refresh's delta rows;
+    # the port records them as `delta_fill_rows` on the stage's record, as
+    # the JAX package does, and the executor heartbeat exports the gauge
+    from ballista_tpu.ops.tpu import stage_compiler as jax_sc
+
+    from ballista_tpu_torch.executor.executor_process import ExecutorProcess
+    from ballista_tpu_torch.ops.cuda import stage_compiler as port_sc
+
+    run_stats = {"port": port_sc.RUN_STATS, "jax": jax_sc.RUN_STATS}
+    fills = {}
+    for pkg in PKGS:
+        # both packages on their device stage (the JAX package's on its CPU
+        # backend), off the fast lane
+        ctx = _ctx(pkg, "standalone", **{"ballista.serving.fast.lane.enabled": False})
+        try:
+            ctx.register_parquet("t", tables["t"])
+            stmt = ctx.prepare(REPEATED)
+            stmt.execute()
+            run_stats[pkg].clear()
+            ctx.append("t", DELTA_T)
+            stmt.execute()
+            assert _counters(ctx)["maintained"] == 1
+            fills[pkg] = [r["delta_fill_rows"] for r in run_stats[pkg].stages().values()
+                          if "delta_fill_rows" in r]
+        finally:
+            ctx.shutdown()
+    assert fills["port"] == [DELTA_T.num_rows]
+    assert fills["port"] == fills["jax"]
+    gauges = dict(ExecutorProcess._tpu_metrics())
+    assert gauges["tpu_delta_fill_rows"] == float(DELTA_T.num_rows)
