@@ -971,9 +971,10 @@ _ENTRIES: list[ConfigEntry] = [
     ConfigEntry(
         TPU_MESH_DEVICES,
         "Device-mesh width for mesh-wide stages. 0 = every visible device "
-        "(make_mesh falls back to CPU virtual devices when the default "
-        "platform has fewer). A mesh below 2 devices demotes the exchange "
-        "to the host split.",
+        "(make_mesh raises when fewer cards are visible than asked, and the "
+        "exchange demotes to the host split; it never falls back to the "
+        "CPU). A mesh below 2 devices demotes the exchange to the host "
+        "split.",
         int, 0, _nonneg,
     ),
     ConfigEntry(

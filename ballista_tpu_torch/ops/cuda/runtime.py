@@ -13,6 +13,9 @@ explicitly, and every tensor the engine makes names it:
   card. Without CUDA and without either request, `device()` raises: there
   is no quiet CPU fallback.
 
+A mesh (parallel/exchange.py) spans `visible_devices()`: every visible
+card, or, after `use_cpu(devices=K)`, K simulated CPU devices.
+
 Binding a process to one card (one executor daemon per card): the daemon
 calls `bind_process_ordinal(k)` before anything creates a CUDA context;
 it sets CUDA_VISIBLE_DEVICES, so the process sees its card as `cuda:0`,
@@ -41,6 +44,7 @@ PLATFORM_ENV = "BALLISTA_TORCH_PLATFORM"
 
 _lock = threading.Lock()
 _cpu_requested: bool | None = None  # None: not asked in-process, read PLATFORM_ENV
+_cpu_devices = 1  # simulated CPU devices a mesh may span (use_cpu(devices=K))
 _bound_ordinal = -1
 _build_dir: str | None = None
 _cc_counts = {"requests": 0, "hits": 0}
@@ -50,12 +54,26 @@ _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
 DEFAULT_BUILD_DIR = os.path.join(_REPO_ROOT, "build", "kernels")
 
 
-def use_cpu(enabled: bool = True) -> None:
+def use_cpu(enabled: bool = True, devices: int = 1) -> None:
     """Explicitly run the device engine on the CPU (tests, small checks).
-    The kernels' plain PyTorch versions then run in their place."""
-    global _cpu_requested
+    The kernels' plain PyTorch versions then run in their place.
+
+    `devices` K simulates K devices for a mesh (`visible_devices`), the
+    counterpart of the reference tests' 8 virtual CPU devices
+    (`--xla_force_host_platform_device_count=8`); every other call sees
+    one CPU device."""
+    global _cpu_requested, _cpu_devices
+    if int(devices) < 1:
+        raise ValueError(f"devices must be >= 1, got {devices}")
     with _lock:
         _cpu_requested = bool(enabled)
+        _cpu_devices = int(devices)
+
+
+def cpu_device_count() -> int:
+    """The simulated CPU devices use_cpu() asked for (1 by default)."""
+    with _lock:
+        return _cpu_devices
 
 
 def cpu_requested() -> bool:
@@ -112,6 +130,19 @@ def device(ordinal: int = -1) -> torch.device:
         # never alias a misconfigured ordinal onto another card
         raise ValueError(f"device ordinal {idx} out of range: {n} cards")
     return torch.device("cuda", idx)
+
+
+def visible_devices() -> list[torch.device]:
+    """Every device a mesh may span, in order: with the CPU asked for, the
+    K simulated CPU devices `use_cpu(devices=K)` requested (`cpu:0` …
+    `cpu:K-1`, whose tensors all live in host memory); otherwise each
+    visible card (one in a process bound to a card). Raises as `device()`
+    does when there is no card and the CPU was not asked for: a mesh never
+    falls back to the CPU."""
+    if cpu_requested():
+        return [torch.device("cpu", i) for i in range(cpu_device_count())]
+    device()
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def device_kind() -> str:

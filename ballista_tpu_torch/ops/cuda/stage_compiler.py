@@ -47,6 +47,18 @@ past the grace depth cap, a second out-of-memory error. Only `Unsupported`
 falls back: a kernel build or launch error, or a missing card, raises out
 of the query.
 
+Partition-sharded stage (`ballista.tpu.collective.exchange`, the
+reference's GSPMD mesh): with the key on and at least two devices visible
+(_stage_mesh), the table's [P, N] stacks are split by partition across a
+`parallel.exchange.Mesh` (P padded to a multiple of the device count with
+empty, fully masked partitions), builds and LUTs are replicated on every
+device, and the pass runs its closure once per device over that device's
+partitions, the outputs gathered in partition order (_run_pass). The
+sorted mode's global sort runs over the shards gathered onto the mesh's
+first device, as GSPMD gathers a sort's operands. Under a mesh the stage
+runs no hand-written kernel: `fused_pallas` clamps to `fused_xla`, as in
+the reference, whose Pallas kernels are single-device.
+
 Warm device daemon (device_daemon/, ops/cuda/daemon_route.py): a session
 with ballista.tpu.daemon.enabled ships each stage's raw subtree to the
 daemon process that owns the card first (_daemon_run_all); the daemon
@@ -72,6 +84,7 @@ import pyarrow as pa
 import torch
 
 from ballista_tpu_torch.config import (
+    TPU_COLLECTIVE_EXCHANGE,
     TPU_COMPILE_CACHE_DIR,
     TPU_FILL_THREADS,
     TPU_FUSION_PALLAS_MAX_GROUPS,
@@ -98,6 +111,7 @@ from ballista_tpu_torch.ops.cuda.kernels import (
     true_mask,
     umod,
 )
+from ballista_tpu_torch.parallel.exchange import ByPartition, Mesh, MeshTensor
 from ballista_tpu_torch.plan.expressions import Alias, Column, Expr
 from ballista_tpu_torch.plan.physical import (
     CoalesceBatchesExec,
@@ -120,9 +134,9 @@ MAX_SEGMENTS = 1 << 16
 
 # Entry budgets (env-tunable safety rails for long-lived processes).
 # table_key: (the probe scan's DEVICE_CACHE.key_of, _build_leaf_keys)
-# (table_key, fingerprint, emit_pid, device) → device LUT tensors
+# (table_key, fingerprint, emit_pid, device or mesh) → device LUT tensors
 _LUT_CACHE = LruDict(_env_int("BALLISTA_TPU_LUT_CACHE_ENTRIES", 256))
-# (table_key, fingerprint, join_idx, device, grace) → BuildTable
+# (table_key, fingerprint, join_idx, device or mesh, grace) → BuildTable
 _BUILD_CACHE = LruDict(
     _env_int("BALLISTA_TPU_BUILD_CACHE_ENTRIES", 32),
     max_bytes=_env_int("BALLISTA_TPU_BUILD_CACHE_BYTES", 2 * 1024**3),
@@ -320,6 +334,16 @@ class DeviceTable:
     def shape(self):
         return tuple(self.mask.shape)
 
+    @property
+    def mesh(self) -> Mesh | None:
+        """The mesh the stacks are sharded over, or None (one device)."""
+        return self.mask.mesh if isinstance(self.mask, MeshTensor) else None
+
+    @property
+    def where(self):
+        """The table's placement: its mesh, or its one device."""
+        return self.mesh if self.mesh is not None else self.mask.device
+
     def flat_cols(self):
         """Device-arg layout: data columns, then the validity planes of the
         nullable columns (offset contract shared with _mk_col_reader)."""
@@ -400,13 +424,15 @@ class DeviceTableCache:
         self.fills = 0
 
     def table_key(self, scan, device) -> tuple:
-        # the device in the key: tables committed to one card never serve
-        # another (or the CPU)
+        # the placement in the key: tables committed to one card never serve
+        # another (or the CPU), nor a mesh a single device
         return self.key_of(scan) + (str(device),)
 
     def get(self, scan, buckets: list[int], ctx, max_bytes: int, device, *,
             fill_threads: int = 0, stats: dict | None = None,
             spill_pool=None) -> DeviceTable:
+        """The resident table for `scan` on `device` (a torch device, or a
+        Mesh to shard its partitions over), filled on a miss."""
         key = self.table_key(scan, device)
         with self._lock:
             hit = self._cache.get(key)
@@ -534,7 +560,9 @@ class DeviceTableCache:
 
     def _load(self, scan, buckets: list[int], ctx, device, *,
               fill_threads: int = 0, stats: dict | None = None) -> DeviceTable:
-        """Read, encode and upload the whole scan as [P, N] stacks.
+        """Read, encode and upload the whole scan as [P, N] stacks (over a
+        Mesh `device`: P padded to a multiple of its size, sharded by
+        partition).
 
         Columns encode on a small host pool while the caller thread copies
         each finished stack to the card in column order, so the encode of
@@ -556,6 +584,13 @@ class DeviceTableCache:
         full = pa.concat_tables(tables)
         del tables  # concat is zero-copy; the chunks live on via `full`
         N = next_bucket(max(max(part_rows), 1), buckets)
+        if isinstance(device, Mesh):
+            # shard the partition axis across the mesh: pad P to a multiple
+            # of the device count with empty (all-masked) partitions
+            while len(part_rows) % device.size:
+                part_rows.append(0)
+        P = len(part_rows)
+        stacks = _by_partition(device)
 
         names = list(full.column_names)
         n_cols = len(names)
@@ -590,10 +625,10 @@ class DeviceTableCache:
         def upload(i: int, dc) -> None:
             nonlocal nbytes, t_up
             t0u = time.time()
-            cols[i] = _put(dc.data, device)
+            cols[i] = _put(dc.data, stacks)
             nbytes += dc.data.nbytes
             if dc.valid is not None:
-                valids[i] = _put(dc.valid, device)
+                valids[i] = _put(dc.valid, stacks)
                 nbytes += dc.valid.nbytes
             t_up += time.time() - t0u
 
@@ -625,11 +660,10 @@ class DeviceTableCache:
         for p, r in enumerate(part_rows):
             mask_np[p, :r] = True
         t0u = time.time()
-        mask = _put(mask_np, device)
+        mask = _put(mask_np, stacks)
         nbytes += mask_np.nbytes
-        if device.type == "cuda":
-            # fill_s must mean "table resident", not "last copy enqueued"
-            torch.cuda.synchronize(device)
+        # fill_s must mean "table resident", not "last copy enqueued"
+        _synchronize(device)
         t_up += time.time() - t0u
         RUN_STATS.set("upload_s", round(t_up, 3), rec=stats)
         return DeviceTable(kinds, scales, dicts, cols, mask, part_rows, nbytes, valids)
@@ -665,11 +699,11 @@ def _restore_device_table(restored, device) -> DeviceTable:
     meta, flat = restored
     kinds, scales, dicts, part_rows, nbytes = meta
     n = len(kinds)
-    cols = [_put(a, device) for a in flat[:n]]
-    mask = _put(flat[n], device)
-    valids = [None if a is None else _put(a, device) for a in flat[n + 1:]]
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)  # fill_s means "table resident", as in _load
+    stacks = _by_partition(device)
+    cols = [_put(a, stacks) for a in flat[:n]]
+    mask = _put(flat[n], stacks)
+    valids = [None if a is None else _put(a, stacks) for a in flat[n + 1:]]
+    _synchronize(device)  # fill_s means "table resident", as in _load
     return DeviceTable(kinds, scales, dicts, cols, mask, part_rows, nbytes, valids)
 
 
@@ -710,6 +744,8 @@ class TpuStageExec(ExecutionPlan):
         # columns; the sorted path then emits a __pid column
         self.emit_pid: tuple[list[int], int] | None = None
         self.pid_emitted = 0
+        # a Mesh handed to this one stage (else _stage_mesh reads the config)
+        self.stage_mesh: Mesh | None = None
         self._results: dict[int, list[pa.RecordBatch]] | None = None
         self._results_lock = threading.Lock()
         # partitions served since the last (re-)dispatch: once every resident
@@ -898,6 +934,7 @@ class TpuStageExec(ExecutionPlan):
         """Collect + encode a join's build side for device probing: the
         direct unique, direct expansion and sorted layouts, with the payload
         columns the probe gathers (none for a filterless semi/anti join).
+        Under a Mesh `device` every array is replicated on each device.
 
         `grace=(bucket, n_buckets)`: keep only the build rows whose combined
         key falls in that secondary-hash sub-bucket (the grace split).
@@ -1078,7 +1115,14 @@ class TpuStageExec(ExecutionPlan):
         est = fusion.estimate_stage(self.scan, self.ops, self.partial_agg, dt, builds)
         cm = fusion.CostModel.from_config(self.config)
         cm.platform = dt.mask.device.type
-        return cm.choose(est), est
+        dec = cm.choose(est)
+        if dec.mode == "fused_pallas" and dt.mesh is not None:
+            # the kernels take one device's tensors: a partition-sharded
+            # pass is the torch form, as the reference clamps its
+            # single-device Pallas kernels under a mesh
+            dec = fusion.FusionDecision(
+                "fused_xla", dec.reason + "; clamped: collective-exchange mesh")
+        return dec, est
 
     def _run_mode(self, dt: DeviceTable, builds: list[BuildTable], table_key,
                   rec: dict, mode_req: str, cache_luts: bool = True):
@@ -1090,18 +1134,17 @@ class TpuStageExec(ExecutionPlan):
         outputs)."""
         fn, lowering, meta = self._compile(dt, builds, mode_req)
         emit_key = (tuple(self.emit_pid[0]), self.emit_pid[1]) if self.emit_pid else None
-        lut_key = (table_key, self.fingerprint, emit_key, str(dt.mask.device))
+        lut_key = (table_key, self.fingerprint, emit_key, str(dt.where))
         luts = _LUT_CACHE.get(lut_key) if cache_luts else None
         if luts is None:
-            luts = [_put(l, dt.mask.device)
+            # replicated across a mesh, so probe gathers stay local
+            luts = [_put(l, dt.where)
                     for l in lowering.build_luts(dt.dicts, [b.dicts for b in builds])]
             if cache_luts:
                 _LUT_CACHE[lut_key] = luts
         t0 = time.time()
-        outs, run_meta = fn(dt.flat_cols(), luts, dt.mask,
-                            [b.flat_arrays() for b in builds])
-        if dt.mask.device.type == "cuda":
-            torch.cuda.synchronize(dt.mask.device)
+        outs, run_meta = _run_pass(fn, meta["mode"], dt, luts, builds)
+        _synchronize(dt.where)
         span_s = run_meta.get("span_s")
         # device seconds of the stage pass: the synchronized dispatch, or
         # the staged spans' sum
@@ -1136,6 +1179,10 @@ class TpuStageExec(ExecutionPlan):
         from ballista_tpu_torch.plan.physical import HashJoinExec
 
         device = runtime.device(ctx.device_ordinal)
+        mesh = self.stage_mesh if self.stage_mesh is not None else _stage_mesh(self.config)
+        if mesh is not None:
+            # the table sharded by partition, builds and LUTs replicated
+            device = mesh
         cc_dir = str(self.config.get(TPU_COMPILE_CACHE_DIR) or "")
         if cc_dir:
             runtime.init_compile_cache(cc_dir)
@@ -1311,7 +1358,8 @@ class TpuStageExec(ExecutionPlan):
         P = dt.shape[0]
         spans = _fusion.plan_spans(
             len(getattr(self.scan, "filters", []) or []), self.ops, agg)
-        use_pallas = mode_req == "fused_pallas"
+        # the kernels take one device's tensors: none under a stage mesh
+        use_pallas = mode_req == "fused_pallas" and dt.mesh is None
         pallas_g_cap = min(int(self.config.get(TPU_FUSION_PALLAS_MAX_GROUPS)),
                            _KERNEL_MAX_G)
         pallas_probe_max = int(self.config.get(TPU_FUSION_PALLAS_MAX_PROBE))
@@ -2227,12 +2275,72 @@ class TpuStageExec(ExecutionPlan):
         return results
 
 
-def _put(arr: np.ndarray, device) -> torch.Tensor:
-    """Place one host array on the stage's device: the single place that
+def _put(arr: np.ndarray, device):
+    """Place one host array for the stage: on its device; over a Mesh,
+    replicated on every device; at a ByPartition placement, split by its
+    leading (partition) axis across the mesh. The single place that
     decides placement, and the one place chaos hbm_oom can fault an
     upload."""
     hbm.maybe_chaos_oom()
+    if isinstance(device, Mesh):
+        return device.replicate(arr)
+    if isinstance(device, ByPartition):
+        return device.mesh.shard(arr)
     return to_device(arr, device)
+
+
+def _by_partition(device):
+    """Where a table's [P, N] stacks go: split by partition over a mesh;
+    the device itself otherwise."""
+    return ByPartition(device) if isinstance(device, Mesh) else device
+
+
+def _synchronize(device) -> None:
+    """Wait for the card(s) `device` (a torch device or a Mesh) names."""
+    devs = device.devices if isinstance(device, Mesh) else (device,)
+    for d in dict.fromkeys(devs):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def _stage_mesh(config: BallistaConfig) -> Mesh | None:
+    """1-D mesh over the partition axis when collective exchange is on and
+    more than one device is visible: the stage's table shards by partition
+    and the pass runs on every device (_run_pass). One executor process
+    drives every visible card."""
+    if not bool(config.get(TPU_COLLECTIVE_EXCHANGE)):
+        return None
+    devs = runtime.visible_devices()
+    if len(devs) < 2:
+        return None
+    return Mesh(devs)
+
+
+def _run_pass(fn, mode: str, dt: "DeviceTable", luts: list, builds: list):
+    """Run a lowered stage closure over the table. On one device, once.
+    Over a mesh, once per device on that device's partitions, builds and
+    LUTs from its replica; every output is [P, ...] by partition, so the
+    per-device outputs, in device order, are the whole pass's outputs in
+    partition order. The sorted mode sorts every partition's rows
+    together, so it runs once over the shards gathered onto the mesh's
+    first device."""
+    build_args = [b.flat_arrays() for b in builds]
+    mesh = dt.mesh
+    if mesh is None:
+        return fn(dt.flat_cols(), luts, dt.mask, build_args)
+    if mode == "sorted":
+        d0 = mesh.devices[0]
+        return fn([c.gather(d0) for c in dt.flat_cols()], [l.local(0) for l in luts],
+                  dt.mask.gather(d0), [[a.local(0) for a in b] for b in build_args])
+    runs = [fn([c.local(i) for c in dt.flat_cols()], [l.local(i) for l in luts],
+               dt.mask.local(i), [[a.local(i) for a in b] for b in build_args])
+            for i in range(mesh.size)]
+    outs = [MeshTensor(mesh, [r[0][k] for r in runs], True) for k in range(len(runs[0][0]))]
+    info = dict(runs[-1][1])
+    if "span_s" in info:
+        # staged spans ran once per device, one after another
+        info["span_s"] = {k: sum(r[1]["span_s"][k] for r in runs) for k in info["span_s"]}
+    return outs, info
 
 
 def _masked_reduce_w(v, gm, func: str, m_eff):

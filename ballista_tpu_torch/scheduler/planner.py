@@ -140,28 +140,120 @@ class DistributedPlanner:
 
 # -- mesh-wide stage merging ---------------------------------------------------
 #
-# In the reference, a hash exchange between two stages on one device mesh can
-# be merged into its consumer as an on-device all_to_all (MeshExchangeExec).
-# That exchange is not ported to the CUDA engine yet (ROADMAP A6).
+# A hash exchange between two stages of the SAME host round-trips through
+# Arrow IPC files and Flight RPCs even though both sides run on chips of one
+# device mesh. When the shape allows, the producer stage is merged INTO its
+# consumer: the producer's ShuffleWriterExec(hash K) and the consumer's
+# reader leaf collapse into a MeshExchangeExec, and the merged stage ships
+# as one mesh-wide task whose repartition is an on-device all_to_all
+# (ops/cuda/mesh_stage.py). Stages that don't fit the shape keep the file
+# path — this is an optimization pass, never a correctness requirement.
+
+
+def choose_mesh_mode(producer: QueryStage, consumers: list[tuple[QueryStage, list]],
+                     config) -> tuple[bool, str]:
+    """The planner's side of the mesh cost model: is this exchange edge
+    mergeable at all? Returns (ok, reason); runtime demotion (capacity,
+    devices, dtypes, AQE input-bytes) happens later with real data in hand.
+    """
+    if producer.broadcast:
+        return False, "broadcast-producer"
+    if not producer.plan.sort_shuffle or not producer.plan.keys:
+        return False, "not-hash-exchange"
+    if producer.output_partitions < 1:
+        return False, "no-output-partitions"
+    if producer.mesh:
+        return False, "producer-already-mesh"
+    if len(consumers) != 1:
+        return False, f"consumers:{len(consumers)}"
+    consumer, leaves = consumers[0]
+    if len(leaves) != 1:
+        return False, f"leaves:{len(leaves)}"
+    if leaves[0].broadcast:
+        return False, "broadcast-edge"
+    if consumer.partitions != producer.output_partitions:
+        # the merged stage's ONE task must cover exactly the reduce buckets
+        # the exchange produces; a mismatched consumer keeps the file path
+        return False, "partition-mismatch"
+    return True, "mesh"
 
 
 def merge_mesh_stages(stages: list[QueryStage], config) -> list[QueryStage]:
     """Fuse single-consumer hash-exchange edges into mesh-wide stages.
 
-    Only active under `ballista.tpu.mesh.enabled` with the device executor
-    engine. The device exchange is not ported to the CUDA engine yet
-    (ROADMAP A6), so asking for the mesh with the device engine raises
-    rather than running the exchange somewhere other than the cards."""
-    from ballista_tpu_torch.config import EXECUTOR_ENGINE, TPU_MESH_ENABLED
-    from ballista_tpu_torch.errors import PlanningError
+    Runs to a fixpoint so a chain of exchanges (partial agg → repartition →
+    final agg → repartition → sort) can collapse into one mesh stage. Only
+    active under `ballista.tpu.mesh.enabled` with the TPU executor engine —
+    per-partition CPU tasks gain nothing from a collective exchange."""
+    import logging
 
+    from ballista_tpu_torch.config import EXECUTOR_ENGINE, TPU_MESH_ENABLED
+
+    log = logging.getLogger(__name__)
     if config is None or not bool(config.get(TPU_MESH_ENABLED)):
         return stages
     if str(config.get(EXECUTOR_ENGINE)) != "tpu":
         return stages
-    raise PlanningError(
-        "ballista.tpu.mesh.enabled: the mesh exchange is not ported to the "
-        "CUDA engine yet (ROADMAP A6); run with the mesh off")
+
+    from ballista_tpu_torch.ops.cuda.mesh_stage import MeshExchangeExec
+
+    def leaves_for(stage: QueryStage, producer_id: int):
+        out = []
+
+        def walk(n):
+            if isinstance(n, UnresolvedShuffleExec) and n.stage_id == producer_id:
+                out.append(n)
+            for c in n.children():
+                walk(c)
+
+        walk(stage.plan)
+        return out
+
+    changed = True
+    while changed:
+        changed = False
+        for producer in list(stages):
+            consumers = []
+            for s in stages:
+                if s.stage_id == producer.stage_id:
+                    continue
+                leaves = leaves_for(s, producer.stage_id)
+                if leaves:
+                    consumers.append((s, leaves))
+            if not consumers:
+                continue  # the final stage: its files ARE the result
+            ok, reason = choose_mesh_mode(producer, consumers, config)
+            if not ok:
+                log.debug("mesh merge skipped stage %d: %s", producer.stage_id, reason)
+                continue
+            consumer, (leaf,) = consumers[0]
+            exchange = MeshExchangeExec(
+                producer.plan.input, producer.plan.keys, producer.output_partitions
+            )
+
+            def swap(n):
+                if n is leaf:
+                    return exchange
+                kids = n.children()
+                if not kids:
+                    return n
+                new_kids = [swap(c) for c in kids]
+                if all(a is b for a, b in zip(new_kids, kids)):
+                    return n
+                return n.with_children(new_kids)
+
+            consumer.plan = swap(consumer.plan)
+            consumer.mesh = True
+            consumer.input_stage_ids = _find_input_stages(consumer.plan)
+            stages = [s for s in stages if s.stage_id != producer.stage_id]
+            log.info(
+                "mesh merge: stage %d (hash exchange, %d buckets) fused into "
+                "stage %d as an on-device all_to_all",
+                producer.stage_id, producer.output_partitions, consumer.stage_id,
+            )
+            changed = True
+            break
+    return stages
 
 
 def _find_input_stages(plan: ExecutionPlan) -> list[int]:

@@ -58,6 +58,7 @@ def test_port_sources_found():
     assert any(p.endswith(os.path.join("client", "direct.py")) for p in srcs)
     assert any(p.endswith(os.path.join("cli", "main.py")) for p in srcs)
     assert any(p.endswith(os.path.join("analysis", "core.py")) for p in srcs)
+    assert any(p.endswith(os.path.join("parallel", "exchange.py")) for p in srcs)
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))

@@ -259,23 +259,34 @@ def test_device_routed_shuffle_files_follow_host_hashing(tpch_dir):
 
 
 def test_mesh_refused_at_planning(tpch_dir):
-    # the mesh exchange is not ported (ROADMAP A6): the planner raises
-    # rather than demoting the exchange to somewhere other than the card
-    from ballista_tpu_torch.errors import ExecutionError, PlanningError
+    # the planner merges the mesh's hash edges, and on one device the
+    # merged stage's exchange demotes to the host split with the local
+    # answer; without a card, and the CPU not asked for, the merged stage
+    # is refused: it raises rather than running its exchange on the CPU
+    from ballista_tpu_torch.errors import ExecutionError
+    from ballista_tpu_torch.ops.cuda.stage_compiler import RUN_STATS
     from ballista_tpu_torch.scheduler.planner import DistributedPlanner, merge_mesh_stages
 
     mesh = {"ballista.tpu.mesh.enabled": True}
     local = _ctx(tpch_dir, standalone=False, **mesh)
     stages = DistributedPlanner("job").plan_query_stages(
         local.create_physical_plan(local.sql(tpch_query(3)).plan))
-    with pytest.raises(PlanningError, match="ROADMAP A6"):
-        merge_mesh_stages(stages, local.config)
     off = _ctx(tpch_dir, standalone=False).config
     assert merge_mesh_stages(stages, off) is stages
+    merged = merge_mesh_stages(list(stages), local.config)
+    assert len(merged) < len(stages) and any(s.mesh for s in merged)
+    want = local.sql(tpch_query(3)).collect()
     ctx = _ctx(tpch_dir, **mesh)
     try:
-        with pytest.raises(ExecutionError, match="mesh exchange is not ported"):
-            ctx.sql(tpch_query(3)).collect()
+        RUN_STATS.clear()
+        assert_same_answer(ctx.sql(tpch_query(3)).collect(), want)
+        assert RUN_STATS.snapshot().get("mesh_mode_reason") == "demoted:single-device"
+        runtime.use_cpu(False)
+        try:
+            with pytest.raises(ExecutionError, match="no CUDA device"):
+                ctx.sql(tpch_query(3)).collect()
+        finally:
+            runtime.use_cpu(True)
     finally:
         ctx.shutdown()
 
