@@ -1013,22 +1013,23 @@ _ENTRIES: list[ConfigEntry] = [
     ConfigEntry(
         TPU_FILL_CHUNK_ROWS,
         "Split each column's [P, N] device upload into row chunks of this "
-        "many rows along N (double-buffered device_put: the host releases "
-        "each chunk as soon as it is issued and XLA overlaps the copies). "
-        "0 = one transfer per column. Ignored under a collective-exchange "
-        "mesh (sharded puts stay whole). Env escape hatch: "
-        "BALLISTA_TPU_FILL_CHUNK_ROWS.",
+        "many rows along N: the stack is allocated once on the card and "
+        "each [P, chunk] slice is staged through two pinned host buffers "
+        "and copied asynchronously, so the host cuts slice k+1 while slice "
+        "k streams. 0 = one transfer per column. Ignored under a "
+        "collective-exchange mesh (sharded puts stay whole). Env escape "
+        "hatch: BALLISTA_TPU_FILL_CHUNK_ROWS.",
         int, _env_int("BALLISTA_TPU_FILL_CHUNK_ROWS", 0), _nonneg,
     ),
     ConfigEntry(
         TPU_COMPILE_OVERLAP,
-        "Overlap XLA compilation and join build-side preparation with the "
-        "device table fill: the compile key (shapes, dtypes, dict sizes) is "
-        "known once every column is encoded, so tracing starts on a "
-        "background thread while uploads are still streaming, and build "
-        "sides collect concurrently with the probe-side fill. RUN_STATS "
-        "reports the hidden seconds as compile_overlap_s. Env escape "
-        "hatch: BALLISTA_TPU_COMPILE_OVERLAP=0.",
+        "Overlap join build-side preparation with the device table fill: "
+        "each join's build side collects, encodes and uploads on a thread "
+        "of its own, bound to the executor's card, while the probe table "
+        "fills; off, the builds follow the fill one by one. The port "
+        "compiles no stage program, so nothing is compiled ahead and "
+        "compile_overlap_s stays unset. Env escape hatch: "
+        "BALLISTA_TPU_COMPILE_OVERLAP=0.",
         bool, _env_bool("BALLISTA_TPU_COMPILE_OVERLAP", True),
     ),
     ConfigEntry(

@@ -11,7 +11,8 @@ model is the reference's:
   (DeviceTableCache; LRU against ballista.tpu.max.device.bytes);
 - each join's build side is collected on the host, encoded into a direct
   key→row table (expansion joins: lo/cnt tables with key-sorted payloads)
-  and cached on the card (_BUILD_CACHE);
+  and cached on the card (_BUILD_CACHE), each on a thread of its own while
+  the probe table fills (ballista.tpu.compile.overlap, _fill_beside_builds);
 - scan filters, projections, join probes with their payload gathers
   (inner, right outer, semi/anti with or without a residual filter,
   aggregate-through-join) are lowered into closures that process all P
@@ -86,6 +87,8 @@ import torch
 from ballista_tpu_torch.config import (
     TPU_COLLECTIVE_EXCHANGE,
     TPU_COMPILE_CACHE_DIR,
+    TPU_COMPILE_OVERLAP,
+    TPU_FILL_CHUNK_ROWS,
     TPU_FILL_THREADS,
     TPU_FUSION_PALLAS_MAX_GROUPS,
     TPU_HBM_GRACE_BUCKETS,
@@ -144,6 +147,42 @@ _BUILD_CACHE = LruDict(
 )
 
 
+class _KeyedFills:
+    """One fill a key at a time for the build and LUT caches, which stage
+    threads and overlapped build threads fill at once: a caller that finds
+    its key being filled waits for that fill and takes its entry, so two
+    concurrent builds of one key make one entry. A failed fill leaves the
+    key free; each waiter then fills (and fails) on its own."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._inflight: dict = {}  # key → Event; bounded by the callers in flight
+
+    def get(self, cache: LruDict, key, fill):
+        while True:
+            hit = cache.get(key)
+            if hit is not None:
+                return hit
+            with self._lock:
+                ev = self._inflight.get(key)
+                if ev is None:
+                    ev = self._inflight[key] = threading.Event()
+                    break
+            ev.wait()
+        try:
+            hit = cache.get(key)  # filled between the miss and the claim
+            if hit is None:
+                hit = cache[key] = fill()
+            return hit
+        finally:
+            with self._lock:
+                self._inflight.pop(key, None)
+            ev.set()
+
+
+_CACHE_FILLS = _KeyedFills()
+
+
 class RunStats:
     """Per-stage-run diagnostics.
 
@@ -154,7 +193,9 @@ class RunStats:
 
     Keys the port fills: fill_s (whole device fill), encode_s (host encode
     wall), upload_s (host→card copies), device_bytes, build_s (join build
-    sides: host collect + encode + upload, or the build-cache hits), exec_s
+    sides: host collect + encode + upload, or the build-cache hits; under
+    ballista.tpu.compile.overlap the builds' wall from the first submit to
+    the last result, beside the fill), exec_s
     (dispatch + fetch + decode), build_modes (direct | sorted per join
     build), fused_kernel_s (device seconds of the
     stage pass), span_s (staged mode: predicate / project / aggregate
@@ -377,10 +418,20 @@ def _no_code_extreme(fn, func: str):
 
 
 def _file_stamp(path: str) -> tuple:
+    """What names a file's contents beside its path: a local file's size,
+    mtime and inode; an object's size and mtime, read with one HEAD
+    request, so an object rewritten under the same key is another table
+    (ROADMAP C26). Never cached: a cached stamp would hide the rewrite."""
+    if path.startswith("s3://"):
+        from ballista_tpu_torch.plan.object_store import resolve_filesystem
+
+        fs, inner = resolve_filesystem(path)
+        info = fs.get_file_info(inner)
+        return (info.size, info.mtime_ns)
     try:
         st = os.stat(path)
     except (OSError, ValueError):
-        return ()  # an object-store URL: the path alone names it
+        return ()
     return (st.st_size, st.st_mtime_ns, st.st_ino)
 
 
@@ -429,11 +480,13 @@ class DeviceTableCache:
         return self.key_of(scan) + (str(device),)
 
     def get(self, scan, buckets: list[int], ctx, max_bytes: int, device, *,
-            fill_threads: int = 0, stats: dict | None = None,
-            spill_pool=None) -> DeviceTable:
+            fill_threads: int = 0, chunk_rows: int = 0, stats: dict | None = None,
+            spill_pool=None, scan_key: tuple | None = None) -> DeviceTable:
         """The resident table for `scan` on `device` (a torch device, or a
-        Mesh to shard its partitions over), filled on a miss."""
-        key = self.table_key(scan, device)
+        Mesh to shard its partitions over), filled on a miss. `scan_key`:
+        the scan's key_of when the caller already holds it (an object
+        store's files are stamped once a run)."""
+        key = (self.key_of(scan) if scan_key is None else scan_key) + (str(device),)
         with self._lock:
             hit = self._cache.get(key)
             if hit is not None:
@@ -462,7 +515,7 @@ class DeviceTableCache:
                 dt = _restore_device_table(restored, device)
             else:
                 dt = self._load(scan, buckets, ctx, device, fill_threads=fill_threads,
-                                stats=stats)
+                                chunk_rows=chunk_rows, stats=stats)
             with self._lock:
                 self.fills += 1
             RUN_STATS.set("fill_s", round(time.time() - t0, 3), rec=stats)
@@ -559,7 +612,8 @@ class DeviceTableCache:
         return ("obj", id(scan), id(type(scan)))
 
     def _load(self, scan, buckets: list[int], ctx, device, *,
-              fill_threads: int = 0, stats: dict | None = None) -> DeviceTable:
+              fill_threads: int = 0, chunk_rows: int = 0,
+              stats: dict | None = None) -> DeviceTable:
         """Read, encode and upload the whole scan as [P, N] stacks (over a
         Mesh `device`: P padded to a multiple of its size, sharded by
         partition).
@@ -568,7 +622,9 @@ class DeviceTableCache:
         each finished stack to the card in column order, so the encode of
         column k+1 overlaps the upload of column k; at most (threads + 2)
         encoded stacks are alive at once. `fill_threads` 0 = auto, 1 =
-        strict serial."""
+        strict serial. `chunk_rows` > 0 copies a stack wider than that in
+        [P, chunk_rows] slices through two pinned buffers (_put_chunked);
+        0, or a Mesh, keeps one copy per stack."""
         if isinstance(scan, ParquetScanExec):
             raw = ParquetScanExec(scan.df_schema, scan.partitions, scan.projection, [], scan.table_name)
         else:
@@ -621,14 +677,15 @@ class DeviceTableCache:
             return dc
 
         t_up = 0.0
+        staging = _Staging(stacks) if chunk_rows > 0 else None
 
         def upload(i: int, dc) -> None:
             nonlocal nbytes, t_up
             t0u = time.time()
-            cols[i] = _put(dc.data, stacks)
+            cols[i] = _put_chunked(dc.data, stacks, chunk_rows, staging)
             nbytes += dc.data.nbytes
             if dc.valid is not None:
-                valids[i] = _put(dc.valid, stacks)
+                valids[i] = _put_chunked(dc.valid, stacks, chunk_rows, staging)
                 nbytes += dc.valid.nbytes
             t_up += time.time() - t0u
 
@@ -727,6 +784,52 @@ def clear_device_caches() -> None:
     daemon_client.clear_attached_caches()
 
 
+def _on_card(card):
+    """Make `card` the calling thread's current CUDA device (a fresh thread
+    starts on device 0, and the kernels launch on the current one); a
+    no-op for the CPU."""
+    if isinstance(card, torch.device) and card.type == "cuda":
+        return torch.cuda.device(card)
+    return contextlib.nullcontext()
+
+
+def _fill_beside_builds(fill, prepare, join_ops: list, card):
+    """The cold-path pipeline (`ballista.tpu.compile.overlap`, the
+    reference's `prep` threads): every join's build is prepared on a pool
+    of its own, each thread on the executor's card, while this thread
+    fills the probe table. Returns (table, builds in join order, the
+    builds' wall from the first submit to the last result).
+
+    An error of the fill or of a build reaches the caller as on the serial
+    path (the fill's first, then the builds' in join order), and only once
+    every build thread has finished: none is left running behind a failed
+    stage, and the out-of-memory rung clears the caches after the last
+    build has filled them."""
+
+    def run(jidx: int, op):
+        with _on_card(card):
+            return prepare(jidx, op)
+
+    pool = _fut.ThreadPoolExecutor(max_workers=len(join_ops), thread_name_prefix="cuda-build")
+    futs: list = []
+    try:
+        t_b = time.time()
+        futs = [pool.submit(run, jidx, op) for jidx, op in enumerate(join_ops)]
+        dt = fill()
+        builds = [f.result() for f in futs]
+        build_s = time.time() - t_b
+    except BaseException as first:
+        pool.shutdown(wait=True)
+        for f in futs:
+            e = f.exception()
+            if e is not None and e is not first:
+                log.warning("join build failed beside the stage's first error (%r): %r",
+                            first, e)
+        raise
+    pool.shutdown(wait=True)
+    return dt, builds, build_s
+
+
 class TpuStageExec(ExecutionPlan):
     def __init__(self, partial_agg: HashAggregateExec, ops: list, scan: ExecutionPlan,
                  config: BallistaConfig):
@@ -739,6 +842,7 @@ class TpuStageExec(ExecutionPlan):
         self.buckets = config.shape_buckets()
         self.fallback_count = 0
         self.tpu_count = 0
+        self.decline_reason: str | None = None  # the last Unsupported's message
         # device-side shuffle routing: (output-schema key indices, K) set by
         # the engine when the parent shuffle writer hash-partitions on group
         # columns; the sorted path then emits a __pid column
@@ -803,6 +907,7 @@ class TpuStageExec(ExecutionPlan):
                     # the declared ladder only (an unported shape, an hbm
                     # demote): a build, launch or device error propagates
                     log.info("device fallback (%s): %s", e, self.partial_agg.node_str())
+                    self.decline_reason = str(e)
                     self._results = {}
             if partition not in self._results and self._device_ok:
                 # a consumer re-executed a partition whose device result was
@@ -816,9 +921,10 @@ class TpuStageExec(ExecutionPlan):
                         out = list(self._results[partition])
                         self._note_served_locked(partition)
                         return out
-                except Unsupported:
+                except Unsupported as e:
                     log.warning("device stage re-run declined; cpu fallback for %s",
                                 self.partial_agg.node_str(), exc_info=True)
+                    self.decline_reason = str(e)
                     self._device_ok = False
             if partition in self._results:
                 out = self._results.pop(partition)
@@ -940,13 +1046,15 @@ class TpuStageExec(ExecutionPlan):
         key falls in that secondary-hash sub-bucket (the grace split).
         Sub-builds carry their bucket in the cache key: a sub-build and the
         whole build never alias."""
+        cache_key = (table_key, self.fingerprint, jidx, str(device), grace)
+        return _CACHE_FILLS.get(_BUILD_CACHE, cache_key,
+                                lambda: self._encode_build(join, ctx, device, grace))
+
+    def _encode_build(self, join, ctx: TaskContext, device,
+                      grace: tuple[int, int] | None) -> BuildTable:
+        """The uncached half of _prepare_build."""
         from ballista_tpu_torch.ops.cuda.columnar import encode_column, repeated_names
         from ballista_tpu_torch.ops.phys_expr import bind_expr, evaluate_to_array
-
-        cache_key = (table_key, self.fingerprint, jidx, str(device), grace)
-        hit = _BUILD_CACHE.get(cache_key)
-        if hit is not None:
-            return hit
 
         batches = []
         for p in range(join.left.output_partition_count()):
@@ -1104,7 +1212,6 @@ class TpuStageExec(ExecutionPlan):
         )
         bt.pay_pos = pay_pos
         bt.shifts = shifts
-        _BUILD_CACHE[cache_key] = bt
         return bt
 
     def _fusion_decision(self, dt: DeviceTable, builds: list[BuildTable]):
@@ -1135,13 +1242,14 @@ class TpuStageExec(ExecutionPlan):
         fn, lowering, meta = self._compile(dt, builds, mode_req)
         emit_key = (tuple(self.emit_pid[0]), self.emit_pid[1]) if self.emit_pid else None
         lut_key = (table_key, self.fingerprint, emit_key, str(dt.where))
-        luts = _LUT_CACHE.get(lut_key) if cache_luts else None
-        if luts is None:
+
+        def upload_luts():
             # replicated across a mesh, so probe gathers stay local
-            luts = [_put(l, dt.where)
+            return [_put(l, dt.where)
                     for l in lowering.build_luts(dt.dicts, [b.dicts for b in builds])]
-            if cache_luts:
-                _LUT_CACHE[lut_key] = luts
+
+        luts = (_CACHE_FILLS.get(_LUT_CACHE, lut_key, upload_luts) if cache_luts
+                else upload_luts())
         t0 = time.time()
         outs, run_meta = _run_pass(fn, meta["mode"], dt, luts, builds)
         _synchronize(dt.where)
@@ -1178,7 +1286,7 @@ class TpuStageExec(ExecutionPlan):
         """One dispatch + one fetch for every partition of this stage."""
         from ballista_tpu_torch.plan.physical import HashJoinExec
 
-        device = runtime.device(ctx.device_ordinal)
+        device = card = runtime.device(ctx.device_ordinal)
         mesh = self.stage_mesh if self.stage_mesh is not None else _stage_mesh(self.config)
         if mesh is not None:
             # the table sharded by partition, builds and LUTs replicated
@@ -1205,16 +1313,30 @@ class TpuStageExec(ExecutionPlan):
         join_ops = [o for o in self.ops if isinstance(o, HashJoinExec)]
         # the build and LUT caches' key: the probe table and the tables
         # under each build side
-        table_key = (DEVICE_CACHE.key_of(self.scan), _build_leaf_keys(join_ops))
-        dt = DEVICE_CACHE.get(self.scan, self.buckets, ctx, max_bytes, device,
-                              fill_threads=int(self.config.get(TPU_FILL_THREADS)),
-                              stats=rec, spill_pool=spill_pool)
-        if sum(dt.part_rows) < self.min_rows:
-            raise Unsupported(f"only {sum(dt.part_rows)} rows (< tpu min)")
-        t_b = time.time()
-        builds = [self._prepare_build(op, jidx, ctx, table_key, device)
-                  for jidx, op in enumerate(join_ops)]
-        rec["build_s"] = round(time.time() - t_b, 6)
+        scan_key = DEVICE_CACHE.key_of(self.scan)
+        table_key = (scan_key, _build_leaf_keys(join_ops))
+
+        def fill() -> DeviceTable:
+            dt = DEVICE_CACHE.get(
+                self.scan, self.buckets, ctx, max_bytes, device,
+                fill_threads=int(self.config.get(TPU_FILL_THREADS)),
+                chunk_rows=int(self.config.get(TPU_FILL_CHUNK_ROWS)),
+                stats=rec, spill_pool=spill_pool, scan_key=scan_key)
+            if sum(dt.part_rows) < self.min_rows:
+                raise Unsupported(f"only {sum(dt.part_rows)} rows (< tpu min)")
+            return dt
+
+        def prepare(jidx: int, op) -> BuildTable:
+            return self._prepare_build(op, jidx, ctx, table_key, device)
+
+        if join_ops and bool(self.config.get(TPU_COMPILE_OVERLAP)):
+            dt, builds, build_s = _fill_beside_builds(fill, prepare, join_ops, card)
+        else:
+            dt = fill()
+            t_b = time.time()
+            builds = [prepare(jidx, op) for jidx, op in enumerate(join_ops)]
+            build_s = time.time() - t_b
+        rec["build_s"] = round(build_s, 6)
         rec["build_modes"] = [b.mode for b in builds]
 
         dec, est = self._fusion_decision(dt, builds)
@@ -1227,7 +1349,7 @@ class TpuStageExec(ExecutionPlan):
         # would re-emit it once per bucket.
         grace_fanout = int(self.config.get(TPU_HBM_GRACE_BUCKETS))
         grace_depth_cap = int(self.config.get(TPU_HBM_GRACE_DEPTH))
-        my_key = DEVICE_CACHE.table_key(self.scan, device)
+        my_key = scan_key + (str(device),)
         plan = hbm.plan_stage(
             est, budget,
             grace_eligible=(not est.has_mult and 0 <= est.max_build_jidx < len(join_ops)
@@ -2287,6 +2409,69 @@ def _put(arr: np.ndarray, device):
     if isinstance(device, ByPartition):
         return device.mesh.shard(arr)
     return to_device(arr, device)
+
+
+class _Staging:
+    """The two host buffers that a chunked upload's [P, chunk] slices pass
+    through: pinned when the target is a card, so each copy runs
+    asynchronously on the caller's stream while the host fills the other
+    buffer. An event per buffer, recorded after its copy, makes the host
+    wait before it refills that buffer. On the CPU (the tests' form) the
+    buffers are plain host memory and the copies synchronous. One caller
+    thread uses it; its buffers grow to the largest slice and are reused."""
+
+    def __init__(self, device):
+        self.cuda = isinstance(device, torch.device) and device.type == "cuda"
+        self._bufs: list = [None, None]
+        self._events: list = [None, None]
+        self._next = 0
+
+    def acquire(self, nbytes: int) -> tuple[int, torch.Tensor]:
+        """(slot, a host byte buffer of `nbytes` no copy still reads)."""
+        i = self._next
+        self._next ^= 1
+        if self._events[i] is not None:
+            self._events[i].synchronize()
+            self._events[i] = None
+        buf = self._bufs[i]
+        if buf is None or buf.numel() < nbytes:
+            buf = self._bufs[i] = torch.empty(nbytes, dtype=torch.uint8, pin_memory=self.cuda)
+        return i, buf[:nbytes]
+
+    def copied(self, slot: int, device) -> None:
+        """Mark the copy just enqueued from `slot` on `device`'s stream."""
+        if self.cuda:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(device))
+            self._events[slot] = ev
+
+
+def _put_chunked(arr: np.ndarray, device, chunk_rows: int, staging: _Staging | None):
+    """Place one [P, N] stack in [P, chunk_rows] slices along N (the
+    reference's `_put_chunked`): the stack is allocated once on the
+    device, and each slice is staged through `staging`'s two buffers and
+    copied with non_blocking=True, so slice k+1 is cut while slice k
+    streams. A mesh placement, a 1-D array, a stack no wider than one
+    chunk, or no staging (chunk_rows 0) takes the whole-array `_put`."""
+    if (staging is None or not isinstance(device, torch.device)
+            or arr.ndim != 2 or arr.shape[1] <= chunk_rows):
+        return _put(arr, device)
+    hbm.maybe_chaos_oom()
+    P, N = arr.shape
+    out = torch.empty((P, N), dtype=torch.from_numpy(np.empty(0, arr.dtype)).dtype,
+                      device=device)
+    for o in range(0, N, chunk_rows):
+        _copy_slice(arr[:, o:o + chunk_rows], out[:, o:o + chunk_rows], staging, device)
+    return out
+
+
+def _copy_slice(src: np.ndarray, dst: torch.Tensor, staging: _Staging, device) -> None:
+    """One [P, c] slice: host slice → staging buffer → its place in `dst`."""
+    slot, buf = staging.acquire(src.nbytes)
+    staged = buf.view(dst.dtype).view(src.shape)
+    staged.numpy()[...] = src
+    dst.copy_(staged, non_blocking=staging.cuda)
+    staging.copied(slot, device)
 
 
 def _by_partition(device):

@@ -254,12 +254,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
    it; (e) q1's partial-aggregate stage handed the 4-shard mesh: its table
    split by partition, every partition's output equal to the unsharded
    pass;
-15. print one JSON line of kernel numbers (each kernel's launches on every
+15. (run after 14) the cold path and the object store, at --q4-scale:
+   (a) q5 (auto mode) and q21 (fused_pallas) cold, each after every cache
+   is dropped, under ballista.tpu.compile.overlap off, on, and on with
+   ballista.tpu.fill.chunk_rows 2^18: every answer byte-identical across
+   the settings and equal to engine=cpu's, every device stage on the card
+   with no fallback, hash_probe launched, with overlap on each join build
+   in the card's scope on a thread of its own and off none; each run's
+   cold wall, fill_s, upload_s, build_s and launches printed; (b) the
+   --q4-scale directory served as an S3 bucket by the port's in-process
+   shim (testing/mini_s3.py), orders and lineitem registered as s3://
+   tables: q4 (masked_group_reduce) and q12 (fused_pallas, dict_filter)
+   cold and 3 warm runs, each equal to the local-file run's answer and to
+   engine=cpu's, every device stage on the card, the kernel launched in
+   every run, the HEAD requests of each run's planning and execution;
+   C26: an object rewritten with another size and registered again answers
+   its new sums on the card; a UDF query (double_it) whose stage declines
+   with its recorded reason and answers as engine=cpu; reached late
+   (LATE_AT), overlap off and on only and q4 alone over S3. Phase 6 prints
+   q21 large's build_s, its builds now beside the fill;
+16. print one JSON line of kernel numbers (each kernel's launches on every
    path above, the standalone and remote modes', TPC-DS's, the daemon's,
-   the serving phase's, the CLI's and the mesh's apart as well), the card
-   line, and last {"ok": true, "device": {...}}.
+   the serving phase's, the CLI's, the mesh's and the cold path's apart as
+   well), the card line, and last {"ok": true, "device": {...}}.
 
-For the run's time limit, the engine=cpu answers of phases 4-14 (with
+For the run's time limit, the engine=cpu answers of phases 4-15 (with
 phase 10's CPU-form claims) are computed in ORACLE_WORKERS child
 processes while the data is generated (as many again for --scale's), and
 all of them are in before the first timed run: no timed window shares the
@@ -313,7 +332,8 @@ SPILL_CONFIG = {**QUERY_CONFIG, "ballista.tpu.hbm.spill.enabled": True,
 # 1.15x where a host like PR 11 R3's reaches it) keeps one warm run
 # instead of best of 3 (phase 12 drops its traced runs, q21 large, one
 # warm run already, its traced run); every check of it stays.
-LATE_AT = {"q21_large": 350.0, "remote": 800.0, "tpcds_big": 850.0, "serving": 900.0}
+LATE_AT = {"q21_large": 350.0, "remote": 800.0, "tpcds_big": 850.0, "serving": 900.0,
+           "cold_path": 1080.0}
 
 
 def warm_runs(t0: float, cell: str) -> int:
@@ -4289,6 +4309,299 @@ def mesh_phase(data_dir: str, dev, launches: dict, emit) -> None:
     emit({"query": "mesh_sharded_q1", **sharded_pass_check(data_dir, dev)})
 
 
+# phase 15: the cold-path pipeline (ballista.tpu.compile.overlap, the
+# join builds beside the probe fill; ballista.tpu.fill.chunk_rows, the
+# pinned, chunked upload) and the object store (s3:// tables served by the
+# port's in-process S3 shim), at --q4-scale. (a) per setting: (overlap,
+# chunk_rows); reached late (LATE_AT), the first two only
+COLD_SETTINGS = (("off", False, 0), ("on", True, 0), ("on_chunked", True, 1 << 18))
+COLD_QUERIES = ((5, {}), (21, {"ballista.tpu.fusion.mode": "fused_pallas"}))
+# (b): the s3:// queries with the kernel each run must launch; late, q4 alone
+S3_QUERIES = ((4, {}, "masked_group_reduce"),
+              (12, {"ballista.tpu.fusion.mode": "fused_pallas"}, "dict_filter"))
+S3_TABLES = ("orders", "lineitem")
+UDF_SQL = ("SELECT l_returnflag, sum(double_it(l_quantity)) AS s FROM lineitem "
+           "GROUP BY l_returnflag ORDER BY l_returnflag")
+
+
+def _device_stages(physical, label: str) -> list:
+    """Every device stage of `physical`, each of which must have run on
+    the card with no fallback."""
+    from ballista_tpu_torch.ops.cuda.final_stage import TpuFinalStageExec
+    from ballista_tpu_torch.ops.cuda.stage_compiler import TpuStageExec
+
+    stages = [n for n in _walk(physical) if isinstance(n, (TpuStageExec, TpuFinalStageExec))]
+    if not any(isinstance(s, TpuStageExec) for s in stages):
+        raise AssertionError(f"{label}: no device partial stage was planned")
+    for s in stages:
+        if s.tpu_count < 1 or s.fallback_count != 0:
+            raise AssertionError(f"{label}: {s.node_str()} did not run on the card "
+                                 f"(device_runs={s.tpu_count}, fallbacks={s.fallback_count})")
+    return stages
+
+
+def _timed_collect(ctx, sql: str):
+    """(answer, wall with planning, the compiled plan)."""
+    from ballista_tpu_torch.engine.cuda_engine import maybe_compile_tpu
+
+    t0 = time.time()
+    physical = maybe_compile_tpu(ctx.create_physical_plan(ctx.sql(sql).plan), ctx.config)
+    tbl = ctx.execute_collect(physical)
+    return tbl, time.time() - t0, physical
+
+
+def cold_run(q: int, data_dir: str, extra: dict, overlap: bool, chunk_rows: int, dev) -> tuple:
+    """One cold run of TPC-H q (every table filled and every build prepared
+    anew) under one cold-path setting: (its answer, its record). The build
+    threads' card scopes are counted: with overlap on, each build enters
+    the card's scope on its own thread."""
+    from ballista_tpu_torch.client.context import SessionContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.ops.cuda import cuda_kernels as ck
+    from ballista_tpu_torch.ops.cuda import stage_compiler as sc
+    from ballista_tpu_torch.testing.tpchgen import register_tpch
+
+    _fresh_card()
+    ctx = SessionContext(BallistaConfig({
+        **QUERY_CONFIG, **extra, "ballista.tpu.compile.overlap": overlap,
+        "ballista.tpu.fill.chunk_rows": chunk_rows}))
+    register_tpch(ctx, data_dir)
+    scopes = []
+    real_on_card = sc._on_card
+
+    def on_card(card):
+        scopes.append(str(card))
+        return real_on_card(card)
+
+    sc._on_card = on_card
+    ck.reset_launches()
+    try:
+        tbl, wall, physical = _timed_collect(ctx, _query_sql(q))
+    finally:
+        sc._on_card = real_on_card
+    launches = dict(ck.LAUNCHES)
+    stages = [s for s in _device_stages(physical, f"cold q{q}")
+              if isinstance(s, sc.TpuStageExec)]
+    recs = [sc.RUN_STATS.stages().get(_tag(s), {}) for s in stages]
+    n_builds = sum(len(r.get("build_modes") or ()) for r in recs)
+    if overlap and (len(scopes) != n_builds or set(scopes) != {str(dev)}):
+        raise AssertionError(f"cold q{q}: {n_builds} builds, card scopes {scopes}")
+    if not overlap and scopes:
+        raise AssertionError(f"cold q{q}: overlap off, yet builds ran on threads {scopes}")
+    if launches["hash_probe"] < 1:
+        raise AssertionError(f"cold q{q}: hash_probe launched {launches['hash_probe']} times")
+
+    def total(key):
+        return sum(float(r.get(key) or 0.0) for r in recs)
+
+    return tbl, {
+        "query": f"cold_q{q}", "overlap": overlap, "chunk_rows": chunk_rows,
+        "cold_wall_s": wall, "fill_s": total("fill_s"), "upload_s": total("upload_s"),
+        "encode_s": total("encode_s"), "build_s": total("build_s"), "builds": n_builds,
+        "build_threads_on_card": len(scopes),
+        "stages": [{k: r.get(k) for k in ("fill_s", "upload_s", "build_s", "build_modes",
+                                          "device_bytes")} for r in recs],
+        "hash_probe_launches": launches["hash_probe"], "launches": launches,
+    }
+
+
+@contextlib.contextmanager
+def _s3_served(root: str):
+    """The port's in-process S3 shim over `root` (each directory a bucket),
+    with the environment its S3FileSystem reads, and a count of the HEAD
+    requests it answers; everything put back after."""
+    from ballista_tpu_torch.testing import mini_s3
+
+    heads = []
+    real_head = mini_s3._Handler.do_HEAD
+
+    def counted(self):
+        heads.append(self.path)
+        return real_head(self)
+
+    mini_s3._Handler.do_HEAD = counted
+    srv, endpoint = mini_s3.start_mini_s3(root)
+    env = {"AWS_ENDPOINT_URL": endpoint, "AWS_ACCESS_KEY_ID": "smoke",
+           "AWS_SECRET_ACCESS_KEY": "smoke", "AWS_ALLOW_HTTP": "true",
+           "AWS_REGION": "us-east-1"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield heads
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        mini_s3._Handler.do_HEAD = real_head
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _s3_session(bucket: str, extra: dict):
+    from ballista_tpu_torch.client.context import SessionContext
+    from ballista_tpu_torch.config import BallistaConfig
+
+    ctx = SessionContext(BallistaConfig({**QUERY_CONFIG, **extra}))
+    for t in S3_TABLES:
+        ctx.register_parquet(t, f"s3://{bucket}/{t}")
+    return ctx
+
+
+def s3_query(q: int, bucket: str, extra: dict, kernel: str, heads: list, local: tuple,
+             warm: int) -> dict:
+    """q over s3:// orders and lineitem: cold after _fresh_card, then
+    `warm` warm runs, each answer equal to the local-file run's answer and
+    to engine=cpu's, every device stage on the card with no fallback, and
+    `kernel` launched in every run; the HEAD requests of each run, those
+    of its planning (each file's footer) and of its execution (each
+    device stage's stamps, and a cold run's reads) apart."""
+    from ballista_tpu_torch.engine.cuda_engine import maybe_compile_tpu
+    from ballista_tpu_torch.ops.cuda import cuda_kernels as ck
+
+    local_tbl, cpu_tbl = local
+    _fresh_card()
+    ctx = _s3_session(bucket, extra)
+    ck.reset_launches()
+    walls, per_run, plan_heads, exec_heads = [], [], [], []
+    for i in range(1 + warm):
+        before = dict(ck.LAUNCHES)
+        n0 = len(heads)
+        t0 = time.time()
+        physical = maybe_compile_tpu(ctx.create_physical_plan(ctx.sql(_query_sql(q)).plan),
+                                     ctx.config)
+        n1 = len(heads)
+        tbl = ctx.execute_collect(physical)
+        wall = time.time() - t0
+        plan_heads.append(n1 - n0)
+        exec_heads.append(len(heads) - n1)
+        per_run.append({k: ck.LAUNCHES[k] - before[k] for k in before})
+        _device_stages(physical, f"s3 q{q}")
+        if not tbl.equals(local_tbl):
+            raise AssertionError(f"s3 q{q}: run {i} differs from the local-file run")
+        compare_answers(tbl, cpu_tbl, f"s3 q{q}")
+        if per_run[-1][kernel] < 1:
+            raise AssertionError(f"s3 q{q}: run {i} launched {kernel} no time")
+        walls.append(wall)
+    return {"query": f"s3_q{q}", "cold_wall_s": walls[0], "times_s": walls[1:],
+            "wall_s": min(walls[1:]) if warm else None, "plan_heads_per_run": plan_heads,
+            "exec_heads_per_run": exec_heads,
+            "files": len(ctx.catalog.get("orders").files) + len(ctx.catalog.get("lineitem").files),
+            "kernel_launches_per_run": per_run, "launches": dict(ck.LAUNCHES)}
+
+
+C26_SQL = "SELECT k, sum(v) AS s FROM t GROUP BY k ORDER BY k"
+
+
+def c26_check(root: str) -> dict:
+    """ROADMAP C26 on the card: one object, k = i mod 4 and v = i over 1000
+    rows, then rewritten with v = 3i (the shim reports one mtime for every
+    object, so the size changes) and registered again in a fresh session:
+    the device stage answers the new sums."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from ballista_tpu_torch.client.context import SessionContext
+    from ballista_tpu_torch.config import BallistaConfig
+
+    path = os.path.join(root, "c26", "t", "part-0.parquet")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    i = np.arange(1000, dtype=np.int64)
+    sums = []
+    for factor in (1, 3):
+        pq.write_table(pa.table({"k": i % 4, "v": i * factor}), path)
+        ctx = SessionContext(BallistaConfig(dict(QUERY_CONFIG)))
+        ctx.register_parquet("t", "s3://c26/t")
+        tbl, _wall, physical = _timed_collect(ctx, C26_SQL)
+        _device_stages(physical, "c26")
+        sums.append(tbl.column("s").to_pylist())
+    if sums != [[124500, 124750, 125000, 125250], [373500, 374250, 375000, 375750]]:
+        raise AssertionError(f"c26: sums before and after the rewrite {sums}")
+    return {"query": "c26_rewrite", "sums": sums}
+
+
+def udf_check(bucket: str, data_dir: str) -> dict:
+    """One UDF query over s3:// lineitem: its device stage declines with
+    the reason it records, and the answer equals engine=cpu's over the
+    local files."""
+    import pyarrow as pa
+
+    from ballista_tpu_torch.client.context import SessionContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.ops.cuda.stage_compiler import TpuStageExec
+    from ballista_tpu_torch.testing import udf_fixtures
+
+    ctx = _s3_session(bucket, {})
+    ctx.register_udf("double_it", udf_fixtures.double_it, pa.int64())
+    tbl, wall, physical = _timed_collect(ctx, UDF_SQL)
+    stages = [n for n in _walk(physical) if isinstance(n, TpuStageExec)]
+    if not stages or any(s.tpu_count or not s.fallback_count for s in stages):
+        raise AssertionError(f"udf: the stage holding double_it did not decline: "
+                             f"{[s.node_str() for s in stages]}")
+    reasons = sorted({s.decline_reason for s in stages})
+    if reasons != ["scalar fn double_it"]:
+        raise AssertionError(f"udf: decline reasons {reasons}")
+    cpu = SessionContext(BallistaConfig({"ballista.executor.engine": "cpu"}))
+    cpu.register_parquet("lineitem", os.path.join(data_dir, "lineitem"))
+    cpu.register_udf("double_it", udf_fixtures.double_it, pa.int64())
+    want = cpu.sql(UDF_SQL).collect()
+    if not tbl.equals(want):
+        raise AssertionError("udf: the declined stage's answer differs from engine=cpu's")
+    return {"query": "s3_udf", "wall_s": wall, "decline_reasons": reasons,
+            "fallbacks": sum(s.fallback_count for s in stages), "rows": tbl.num_rows}
+
+
+def cold_path_phase(data_dir: str, dev, answers: dict, launches: dict, late: bool,
+                    emit) -> None:
+    """Phase 15: (a) cold q5 (auto mode) and q21 (fused_pallas) under each
+    cold-path setting, every answer byte-identical across the settings and
+    equal to engine=cpu's; (b) q4 and q12 over s3:// tables, C26's rewrite,
+    one UDF query. Reached late: (a) overlap off and on only, (b) q4 alone.
+    The launch counts are set to 0 just before each run and read just
+    after it."""
+    settings = COLD_SETTINGS[:2] if late else COLD_SETTINGS
+    for q, extra in COLD_QUERIES:
+        first = None
+        for name, overlap, chunk_rows in settings:
+            tbl, r = cold_run(q, data_dir, extra, overlap, chunk_rows, dev)
+            launches[f"cold_q{q}_{name}"] = r.pop("launches")
+            if first is None:
+                compare_answers(tbl, answers[q][1], q)
+                first = tbl
+            elif not tbl.equals(first):
+                raise AssertionError(f"cold q{q}: the {name} answer differs from "
+                                     f"the {settings[0][0]} one")
+            emit(r)
+            log(f"cold q{q} {name}: {r['cold_wall_s']:.3f} s, fill {r['fill_s']:.3f}, "
+                f"upload {r['upload_s']:.3f}, build {r['build_s']:.3f} ({r['builds']} "
+                f"builds), hash_probe {r['hash_probe_launches']}")
+    root, bucket = os.path.dirname(os.path.abspath(data_dir)), os.path.basename(data_dir)
+    t_b = time.time()
+    try:
+        with _s3_served(root) as heads:
+            for q, extra, kernel in S3_QUERIES[:1] if late else S3_QUERIES:
+                r = s3_query(q, bucket, extra, kernel, heads, answers[q], 1 if late else 3)
+                launches[f"s3_q{q}"] = r.pop("launches")
+                emit(r)
+                log(f"s3 q{q}: cold {r['cold_wall_s']:.3f} s, warm {r['times_s']}, "
+                    f"HEAD requests a run: planning {r['plan_heads_per_run']}, execution "
+                    f"{r['exec_heads_per_run']}, over {r['files']} files")
+            r = c26_check(root)
+            emit(r)
+            log(f"c26 on the card: sums {r['sums']}")
+            if not late:
+                r = udf_check(bucket, data_dir)
+                emit(r)
+                log(f"udf: declined ({r['decline_reasons']}), {r['wall_s']:.3f} s")
+    finally:
+        import shutil
+
+        shutil.rmtree(os.path.join(root, "c26"), ignore_errors=True)
+    emit({"query": "s3_phase", "wall_s": time.time() - t_b, "late": late})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=10.0)
@@ -4443,6 +4756,12 @@ def main(argv=None) -> int:
         r = q21_large_check(big_dir, args.scale, dev,
                             busy_ok and warm_runs(t0, "q21_large") > 1, q21_ref, warm=1)
         launches["q21_large"] = r["launches"]
+        # its builds now run beside the fill (ballista.tpu.compile.overlap
+        # on by default): their wall against the serial order's 22.2 s
+        r["build_s_cold"] = sum(st.get("build_s") or 0.0 for st in r["cold_stages"])
+        r["build_s_warm"] = sum(st.get("build_s") or 0.0 for st in r["stages"])
+        log(f"q21 large build_s cold {r['build_s_cold']:.3f} s, warm "
+            f"{r['build_s_warm']:.3f} s (overlap on; the serial order's, PERF.md: 22.2 s)")
         emit(r, args.scale)
         log(f"q21 at SF{scale_s} done at {time.time() - t0:.1f}s")
         # q1, q5 and q12 at --q4-scale, local on the card as in phase 4: the
@@ -4569,6 +4888,18 @@ def main(argv=None) -> int:
         _fresh_card()
         mesh_phase(q4_dir, dev, launches, lambda r: emit(r, args.q4_scale))
         log(f"mesh phase took {time.time() - t14:.1f}s, done at {time.time() - t0:.1f}s")
+        # the cold path and the object store: the launch counts are set to
+        # 0 just before each run and read just after it
+        t15 = time.time()
+        late = time.time() - t0 > LATE_AT["cold_path"]
+        if late:
+            log(f"cold_path reached past {LATE_AT['cold_path']:g}s: its late form "
+                "(overlap off and on, q4 alone over S3)")
+        cold_answers = {5: small_answers[5], 21: answers[21], 4: answers[4],
+                        12: small_answers[12]}
+        cold_path_phase(q4_dir, dev, cold_answers, launches, late,
+                        lambda r: emit(r, args.q4_scale))
+        log(f"cold path phase took {time.time() - t15:.1f}s, done at {time.time() - t0:.1f}s")
         path_of = {"masked_group_reduce": (4,),
                    "hash_probe": (5, 21, "q21_large", "q5_grace", "q5_small"),
                    "dict_filter": (12, "q12_small"),
@@ -4580,6 +4911,7 @@ def main(argv=None) -> int:
         daemon = [k for k in launches if str(k).startswith("daemon_")]
         serving = [k for k in launches if str(k).startswith("serving_")]
         mesh = [k for k in launches if str(k).startswith("mesh_")]
+        cold = [k for k in launches if str(k).startswith(("cold_", "s3_"))]
         for krec in krecs:
             krec["standalone_launches"] = sum(launches[q][krec["name"]] for q in standalone)
             krec["remote_launches"] = sum(launches[q][krec["name"]] for q in remote)
@@ -4588,11 +4920,12 @@ def main(argv=None) -> int:
             krec["serving_launches"] = sum(launches[q].get(krec["name"], 0) for q in serving)
             krec["cli_launches"] = launches["cli_remote"].get(krec["name"], 0)
             krec["mesh_launches"] = sum(launches[q].get(krec["name"], 0) for q in mesh)
+            krec["cold_path_launches"] = sum(launches[q].get(krec["name"], 0) for q in cold)
             krec["launches"] = (sum(launches[q][krec["name"]] for q in path_of[krec["name"]])
                                 + krec["standalone_launches"] + krec["remote_launches"]
                                 + krec["tpcds_launches"] + krec["daemon_launches"]
                                 + krec["serving_launches"] + krec["cli_launches"]
-                                + krec["mesh_launches"])
+                                + krec["mesh_launches"] + krec["cold_path_launches"])
             if krec["launches"] < 1:
                 raise AssertionError(f"the main path launched {krec['name']} no time")
         log(f"path phase done at {time.time() - t0:.1f}s")
