@@ -43,6 +43,10 @@ from ballista_tpu_torch.shuffle.types import PartitionLocation
 from ballista_tpu_torch.utils.lru import LruDict
 
 
+# guards the read-add-write of a node's counters across partition threads
+_COUNTERS_LOCK = threading.Lock()
+
+
 class ShuffleReaderExec(ExecutionPlan):
     def __init__(self, df_schema: DFSchema, partition_locations: list[list[PartitionLocation]],
                  broadcast: bool = False):
@@ -97,8 +101,13 @@ class ShuffleReaderExec(ExecutionPlan):
                     yield b
         finally:
             # data-plane accounting for EXPLAIN ANALYZE / the scheduler's
-            # task metrics: RPCs issued and bytes moved by provenance
-            self.metrics.extra.update(ctr.snapshot())
+            # task metrics: RPCs issued and bytes moved by provenance,
+            # summed over every partition this node executes (C27: a task
+            # that reads several partitions kept only the last one's)
+            with _COUNTERS_LOCK:
+                extra = self.metrics.extra
+                for k, v in ctr.snapshot().items():
+                    extra[k] = extra.get(k, 0) + v
         if not produced:
             yield _empty_batch(self.schema())
 

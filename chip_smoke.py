@@ -273,13 +273,36 @@ Phases, each fatal on failure (non-zero exit, no result line):
    with its recorded reason and answers as engine=cpu; reached late
    (LATE_AT), overlap off and on only and q4 alone over S3. Phase 6 prints
    q21 large's build_s, its builds now beside the fill;
-16. print one JSON line of kernel numbers (each kernel's launches on every
+16. (run after 15) the TPC-H queries no earlier phase runs, at --q4-scale:
+   (a) q2, q7, q8, q11, q14, q15, q16, q17, q18, q19, q20 and q22 local in
+   auto mode, then q14 and q19 under fused_pallas (dict_filter on their
+   LIKE and IN lists): each after every cache is dropped, a cold run, best
+   of 3 and one traced warm run (reached late, LATE_AT: one warm run and
+   no traced run);
+   every answer equal to engine=cpu's (floats within F32_LANE_RTOL where
+   the run launched masked_group_reduce), every device node claimed, run
+   and fallen back as on the port's CPU form (computed in a worker, as
+   phase 10's), each declining node with the CPU form's reason, every
+   fused_pallas sort stage launching its kernel; per query the walls,
+   plan_s, each partial stage's fusion mode and reason, each sort node's
+   decisions, the launches of the six kernels per run, the time any host
+   hash join ran (the union of their spans, by join mode), busy time and
+   idle share; (b) (a)'s twelve in auto mode through
+   SessionContext.remote(addr) against phase 9's in-process cluster (one
+   push executor pinned to card 0, one slot) with
+   ballista.shuffle.reader.force_remote_read: a warm-up run and one run,
+   each answer equal to (a)'s, every device stage on the card in every
+   task, one pass a task, no fallback, every read over Flight; per query
+   the walls, stages, tasks, device passes and launches (the remote
+   mode runs the twelve only: with all 22 the phase overran the 120 s it
+   may take of the run's limit, PERF.md §4);
+17. print one JSON line of kernel numbers (each kernel's launches on every
    path above, the standalone and remote modes', TPC-DS's, the daemon's,
-   the serving phase's, the CLI's, the mesh's and the cold path's apart as
-   well), the card line, and last {"ok": true, "device": {...}}.
+   the serving phase's, the CLI's, the mesh's, the cold path's and phase
+   16's apart as well), the card line, and last {"ok": true, "device": {...}}.
 
-For the run's time limit, the engine=cpu answers of phases 4-15 (with
-phase 10's CPU-form claims) are computed in ORACLE_WORKERS child
+For the run's time limit, the engine=cpu answers of phases 4-16 (with
+the CPU-form claims of phases 10 and 16) are computed in ORACLE_WORKERS child
 processes while the data is generated (as many again for --scale's), and
 all of them are in before the first timed run: no timed window shares the
 host with the generator or the CPU engine. Meanwhile the card runs phase
@@ -333,7 +356,7 @@ SPILL_CONFIG = {**QUERY_CONFIG, "ballista.tpu.hbm.spill.enabled": True,
 # instead of best of 3 (phase 12 drops its traced runs, q21 large, one
 # warm run already, its traced run); every check of it stays.
 LATE_AT = {"q21_large": 350.0, "remote": 800.0, "tpcds_big": 850.0, "serving": 900.0,
-           "cold_path": 1080.0}
+           "cold_path": 1080.0, "tpch22": 850.0}
 
 
 def warm_runs(t0: float, cell: str) -> int:
@@ -462,23 +485,29 @@ def _decline_reasons(physical) -> list:
             if getattr(n, "decline_reason", None) is not None]
 
 
-def _tpcds_job(q: int, data_dir: str):
-    """TPC-DS query q over `data_dir` in a worker: the port's engine=cpu
-    answer (an Arrow IPC stream) and its wall, and what the port's CPU form
-    (engine=tpu after runtime.use_cpu(), QUERY_CONFIG) does with it: the
-    device claims, the final stages' decline reasons, and the error's type
-    and message where it raises, which fails the query on the card."""
+def _cpu_form_job(kind: str, q: int, data_dir: str, extra: dict | None = None):
+    """Query q of `kind` ("tpch" or "tpcds") over `data_dir` in a worker:
+    the port's engine=cpu answer (an Arrow IPC stream) and its wall, and
+    what the port's CPU form (engine=tpu after runtime.use_cpu(),
+    QUERY_CONFIG and `extra`) does with it: the device claims, the decline
+    reasons, and the error's type and message where it raises, which fails
+    the query on the card. The CPU form's tables are dropped after it."""
     import pyarrow as pa
 
     from ballista_tpu_torch.client.context import SessionContext
     from ballista_tpu_torch.config import BallistaConfig
     from ballista_tpu_torch.engine.cuda_engine import maybe_compile_tpu
     from ballista_tpu_torch.ops.cuda import runtime
-    from ballista_tpu_torch.testing.tpcdsgen import register_tpcds
+    from ballista_tpu_torch.ops.cuda.stage_compiler import clear_device_caches
 
-    sql = _tpcds_sql(q)
+    if kind == "tpcds":
+        from ballista_tpu_torch.testing.tpcdsgen import register_tpcds as register
+        sql = _tpcds_sql(q)
+    else:
+        from ballista_tpu_torch.testing.tpchgen import register_tpch as register
+        sql = _query_sql(q)
     ctx = SessionContext(BallistaConfig({"ballista.executor.engine": "cpu"}))
-    register_tpcds(ctx, data_dir)
+    register(ctx, data_dir)
     t0 = time.time()
     tbl = ctx.sql(sql).collect()
     seconds = time.time() - t0
@@ -486,14 +515,16 @@ def _tpcds_job(q: int, data_dir: str):
     with pa.ipc.new_stream(sink, tbl.schema) as w:
         w.write_table(tbl)
     runtime.use_cpu()
-    ctx = SessionContext(BallistaConfig(dict(QUERY_CONFIG)))
-    register_tpcds(ctx, data_dir)
+    ctx = SessionContext(BallistaConfig({**QUERY_CONFIG, **(extra or {})}))
+    register(ctx, data_dir)
     physical = maybe_compile_tpu(ctx.create_physical_plan(ctx.sql(sql).plan), ctx.config)
     try:
         ctx.execute_collect(physical)
         error = None
     except Exception as e:  # noqa: BLE001 — the card must raise the same
         error = [type(e).__name__, str(e)]
+    finally:
+        clear_device_caches()
     cpu_form = {"claims": device_claims(physical), "declines": _decline_reasons(physical),
                 "error": error}
     return sink.getvalue(), seconds, cpu_form
@@ -540,7 +571,15 @@ class CpuOracle:
 
     def submit_tpcds(self, queries, data_dir: str) -> None:
         for q in queries:
-            self._submit(("tpcds", q, data_dir), _tpcds_job, q, data_dir)
+            self._submit(("tpcds", q, data_dir), _cpu_form_job, "tpcds", q, data_dir)
+
+    def submit_tpch_forms(self, forms, data_dir: str) -> None:
+        """(engine=cpu answer, wall, CPU form) of each TPC-H (query, mode
+        name, extra config) in `forms`, read with `keyed(("tpch_form", q,
+        name, data_dir))`."""
+        for q, name, extra in forms:
+            self._submit(("tpch_form", q, name, data_dir), _cpu_form_job, "tpch", q,
+                         data_dir, extra)
 
     def _collect(self, job) -> None:
         import pyarrow as pa
@@ -2147,12 +2186,14 @@ STANDALONE_QUERIES = (
 
 def _drive_cluster(ctx, scheduler_of, q: int, label: str, dev, busy_ok: bool,
                    local_rec: dict, local_tbl, flight_servers=(), rpc=None,
-                   force_remote: bool = False, warm_runs: int = 3, kernel: str | None = None) -> dict:
+                   force_remote: bool = False, warm_runs: int = 3, kernel: str | None = None,
+                   rtol: float = 1e-9) -> dict:
     """One query through a cluster (`scheduler_of()`: its SchedulerServer,
     in this process): a cold run and best of `warm_runs`, each answer equal
-    to the port's local answer on the card (PERF.md §2's rule); every device
-    stage on the card in every task with no fallback, holding every device
-    node kind local mode ran; `kernel`, where given, launched in every run;
+    to the port's local answer on the card (PERF.md §2's rule; floats
+    within `rtol`); every device stage on the card in every task with no
+    fallback, holding every device node kind local mode ran; `kernel`,
+    where given, launched in every run;
     one traced warm run. Per stage: tasks, device passes summed over them,
     shuffle bytes written and read; the Flight servers' RPCs and bytes; the
     scheduler's gRPC launches and status updates (`rpc`); kernel launches
@@ -2181,7 +2222,7 @@ def _drive_cluster(ctx, scheduler_of, q: int, label: str, dev, busy_ok: bool,
                        for k in flight_keys})
         if rpc is not None:
             rpcs.append({k: v - sent[k] for k, v in rpc.snapshot().items()})
-        compare_answers(tbl, local_tbl, q)
+        compare_answers(tbl, local_tbl, q, rtol)
         stats_runs.append(stage_stats(last_job(scheduler_of())))
         if kernel is not None and run_launches[-1][kernel] < 1:
             raise AssertionError(f"q{q} {label}: a run launched no {kernel}")
@@ -2369,7 +2410,8 @@ def stop_remote_cluster(sched, execs) -> None:
 
 def run_remote_query(q: int, data_dir: str, extra_cfg: dict, kernel: str | None, dev,
                      busy_ok: bool, local_rec: dict, local_tbl, cluster,
-                     force_remote: bool = False, warm_runs: int = 3) -> dict:
+                     force_remote: bool = False, warm_runs: int = 3,
+                     rtol: float = 1e-9) -> dict:
     """One query through SessionContext.remote(addr) against `cluster`
     (start_remote_cluster; _drive_cluster says what is checked and
     recorded), with the data plane each executor served from."""
@@ -2386,7 +2428,8 @@ def run_remote_query(q: int, data_dir: str, extra_cfg: dict, kernel: str | None,
     r = _drive_cluster(ctx, lambda: sched.scheduler, q, "remote", dev, busy_ok, local_rec,
                        local_tbl, flight_servers=[e.flight_server for e in execs
                                                   if e.flight_server is not None],
-                       rpc=rpc, force_remote=force_remote, warm_runs=warm_runs, kernel=kernel)
+                       rpc=rpc, force_remote=force_remote, warm_runs=warm_runs, kernel=kernel,
+                       rtol=rtol)
     return {**r, "config": extra_cfg, "executors": [
         {"policy": e.policy, "slots": e.metadata.vcores,
          "device_ordinal": e.metadata.device_ordinal,
@@ -3081,16 +3124,16 @@ def _sort_decisions(physical) -> list:
     return out
 
 
-def _check_sort_launches(q: int, stages: list, launches: dict) -> None:
+def _check_sort_launches(label: str, stages: list, launches: dict) -> None:
     """A sort stage the cost model sent to fused_pallas launches
     segmented_sort or topk_select in its run, a window stage
     segmented_scan."""
     pallas = {s["kind"] for s in stages if s["fusion_modes"].get("fused_pallas")}
     if "TpuSortStageExec" in pallas and not (launches["segmented_sort"]
                                              + launches["topk_select"]):
-        raise AssertionError(f"TPC-DS q{q}: a fused_pallas sort stage launched no kernel")
+        raise AssertionError(f"{label}: a fused_pallas sort stage launched no kernel")
     if "TpuWindowStageExec" in pallas and not launches["segmented_scan"]:
-        raise AssertionError(f"TPC-DS q{q}: a fused_pallas window stage launched no scan")
+        raise AssertionError(f"{label}: a fused_pallas window stage launched no scan")
 
 
 def run_tpcds_big_query(q: int, data_dir: str, dev, busy_ok: bool, warm: int = 3) -> dict:
@@ -3117,7 +3160,7 @@ def run_tpcds_big_query(q: int, data_dir: str, dev, busy_ok: bool, warm: int = 3
         claims = _hold_tpcds_run(q, tbl, error, physical, cpu_tbl, cpu_form,
                                  run_launches[-1])
         stages.append(_sort_decisions(physical))
-        _check_sort_launches(q, stages[-1], run_launches[-1])
+        _check_sort_launches(f"TPC-DS q{q}", stages[-1], run_launches[-1])
         walls.append(wall)
         plan_times.append(plan_s)
         return claims
@@ -4602,6 +4645,191 @@ def cold_path_phase(data_dir: str, dev, answers: dict, launches: dict, late: boo
     emit({"query": "s3_phase", "wall_s": time.time() - t_b, "late": late})
 
 
+# ---------------------------------------------------------------- TPC-H 22
+
+# phase 16 (a): the TPC-H queries no earlier phase runs, local at --q4-scale
+# in auto mode (each (query, mode name, config)), then q14 and q19 under
+# fused_pallas, where their LIKE and IN predicates go through dict_filter
+TPCH22_LOCAL = (2, 7, 8, 11, 14, 15, 16, 17, 18, 19, 20, 22)
+TPCH22_FORMS = ([(q, "auto", {}) for q in TPCH22_LOCAL]
+                + [(q, "fused_pallas", {"ballista.tpu.fusion.mode": "fused_pallas"})
+                   for q in (14, 19)])
+
+
+@contextlib.contextmanager
+def _host_joins(spans: dict):
+    """Record, by join mode, the [start, end] of every HashJoinExec partition
+    the CPU engine runs (a device stage runs its joins itself)."""
+    from ballista_tpu_torch.plan.physical import HashJoinExec
+
+    execute = HashJoinExec.execute
+
+    def timed(self, partition, ctx):
+        def run():
+            t0 = time.time()
+            try:
+                yield from execute(self, partition, ctx)
+            finally:
+                spans.setdefault(self.mode, []).append((t0, time.time()))
+        return run()
+
+    HashJoinExec.execute = timed
+    try:
+        yield
+    finally:
+        HashJoinExec.execute = execute
+
+
+def _union_s(spans: list) -> float:
+    """Seconds covered by the union of [start, end] spans."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
+
+
+def run_tpch22_query(q: int, name: str, extra: dict, data_dir: str, busy_ok: bool,
+                     warm: int) -> tuple:
+    """Phase 16 (a), one query: a cold run after every cache is dropped,
+    best of `warm` and one traced run, each held to engine=cpu and to the
+    port's CPU form (its claims and decline reasons); a fused_pallas sort
+    stage launching its kernel. Returns (record, the last answer)."""
+    from ballista_tpu_torch.client.context import SessionContext
+    from ballista_tpu_torch.config import BallistaConfig
+    from ballista_tpu_torch.engine.cuda_engine import maybe_compile_tpu
+    from ballista_tpu_torch.ops.cuda import cuda_kernels as ck
+    from ballista_tpu_torch.ops.cuda.stage_compiler import RUN_STATS
+    from ballista_tpu_torch.testing.tpchgen import register_tpch
+
+    label = f"q{q}" + ("" if name == "auto" else f" {name}")
+    cpu_tbl, cpu_s, cpu_form = ORACLE.keyed(("tpch_form", q, name, data_dir))
+    if cpu_form["error"] is not None:
+        raise AssertionError(f"{label}: the CPU form raised {cpu_form['error']}")
+    sql = _query_sql(q)
+    ctx = SessionContext(BallistaConfig({**QUERY_CONFIG, **extra}))
+    register_tpch(ctx, data_dir)
+    _fresh_card()
+    runs = []
+
+    def one_run():
+        before = dict(ck.LAUNCHES)
+        spans: dict = {}
+        t0 = time.time()
+        with _host_joins(spans):
+            physical = maybe_compile_tpu(ctx.create_physical_plan(ctx.sql(sql).plan),
+                                         ctx.config)
+            plan_s = time.time() - t0
+            tbl = ctx.execute_collect(physical)
+        wall = time.time() - t0
+        launches = {k: ck.LAUNCHES[k] - before[k] for k in SIX_KERNELS}
+        compare_answers(tbl, cpu_tbl, q,
+                        F32_LANE_RTOL if launches["masked_group_reduce"] else 1e-9)
+        claims = device_claims(physical)
+        declines = _decline_reasons(physical)
+        if _claimed(claims) != _claimed(cpu_form["claims"]):
+            raise AssertionError(f"{label}: device claims {claims} on the card, "
+                                 f"{cpu_form['claims']} on the CPU form")
+        if sorted(set(declines)) != sorted(set(cpu_form["declines"])):
+            raise AssertionError(f"{label}: declined for {declines} on the card, "
+                                 f"{cpu_form['declines']} on the CPU form")
+        if not claims:
+            raise AssertionError(f"{label}: no device node was planned")
+        sorts = _sort_decisions(physical)
+        _check_sort_launches(label, sorts, launches)
+        recs = RUN_STATS.stages()
+        partial = [{k: recs.get(_tag(n), {}).get(k) for k in
+                    ("fusion_mode", "fusion_reason", "hbm_plan", "n_seg", "build_modes",
+                     "device_bytes")}
+                   for n in _walk(physical) if type(n).__name__ == "TpuStageExec"]
+        runs.append({"tbl": tbl, "wall": wall, "plan_s": plan_s, "launches": launches,
+                     "claims": claims, "declines": declines, "sorts": sorts,
+                     "partial": partial,
+                     "host_join_s": {m: _union_s(v) for m, v in sorted(spans.items())},
+                     "host_join_tasks": {m: len(v) for m, v in sorted(spans.items())}})
+
+    for _ in range(1 + warm):  # cold, then best of `warm`
+        one_run()
+    best = min(range(1, 1 + warm), key=lambda k: runs[k]["wall"])
+    t0 = time.time()
+    by_name: dict = {}
+    busy = device_busy_ms(one_run, by_name=by_name) if busy_ok else None
+    traced_wall = time.time() - t0
+    top_ops = sorted(([n[:80], ms, c] for n, (ms, c) in by_name.items()),
+                     key=lambda r: -r[1])[:6]
+    # a warm run reads every column of its stages' cached tables at least
+    # once: a busy time below that byte floor means dropped events
+    busy_floor_ms = (sum(p["device_bytes"] or 0 for p in runs[0]["partial"])
+                     / HBM_BYTES_PER_S * 1e3)
+    if busy is not None and busy < busy_floor_ms:
+        log(f"{label}: profiler busy {busy:.4f} ms is below the tables' byte floor "
+            f"{busy_floor_ms:.4f} ms: reported as null")
+        busy = None
+    r = runs[best]
+    stages = [(p["fusion_mode"], p["fusion_reason"]) for p in r["partial"]]
+    log(f"{label}: cold {runs[0]['wall']:.3f} s, warm {r['wall']:.4f} s (plan "
+        f"{r['plan_s']:.4f}); stages {stages}; "
+        f"sorts {[(s['fusion_modes'], s['fusion_reasons']) for s in r['sorts']]}; "
+        f"launches {[{k: v for k, v in x['launches'].items() if v} for x in runs]}; "
+        f"declines {r['declines']}; host joins {r['host_join_s']}; busy {busy} ms")
+    rec = {
+        "query": f"tpch22_q{q}" + ("" if name == "auto" else f"_{name}"), "mode": name,
+        "config": extra, "cold_wall_s": runs[0]["wall"], "wall_s": r["wall"],
+        "times_s": [x["wall"] for x in runs[1:1 + warm]], "plan_s": r["plan_s"],
+        "cold_plan_s": runs[0]["plan_s"], "rows_out": cpu_tbl.num_rows, "cpu_engine_s": cpu_s,
+        "device_nodes": _node_summary(r["claims"]), "declines": r["declines"],
+        "partial_stages": r["partial"], "sort_stages": r["sorts"],
+        "kernel_launches_per_run": [x["launches"] for x in runs],
+        "host_join_s": r["host_join_s"], "host_join_tasks": r["host_join_tasks"],
+        "traced_wall_s": traced_wall, "device_busy_ms": busy, "top_device_ops": top_ops,
+        "busy_floor_ms": busy_floor_ms,
+        "device_idle_share": None if busy is None else 1.0 - busy / 1e3 / traced_wall,
+    }
+    return rec, r["tbl"]
+
+
+def tpch22_phase(data_dir: str, dev, busy_ok: bool, late: bool, launches: dict,
+                 emit) -> None:
+    """Phase 16: (a) TPCH22_FORMS local (run_tpch22_query; reached late,
+    one warm run and no traced run), (b) (a)'s twelve in auto mode through
+    the remote mode, each held to (a)'s answer (with all 22 remote the
+    phase overran the 120 s it may take, PERF.md §4). The launch counts
+    are set to 0 just before each query's runs and read just after them."""
+    from ballista_tpu_torch.ops.cuda import cuda_kernels as ck
+
+    t_a = time.time()
+    local = {}
+    for q, name, extra in TPCH22_FORMS:
+        ck.reset_launches()
+        r, tbl = run_tpch22_query(q, name, extra, data_dir, busy_ok, 1 if late else 3)
+        r["launches"] = launches[r["query"]] = dict(ck.LAUNCHES)
+        emit(r)
+        if name == "auto":
+            local[q] = (r, tbl)
+    emit({"query": "tpch22_local", "wall_s": time.time() - t_a, "late": late})
+    t_b = time.time()
+    cluster = start_remote_cluster()
+    try:
+        for q in TPCH22_LOCAL:
+            local_rec, local_tbl = local[q]
+            mgr = any(x["masked_group_reduce"] for x in local_rec["kernel_launches_per_run"])
+            ck.reset_launches()
+            r = run_remote_query(q, data_dir, {}, None, dev, False, local_rec, local_tbl,
+                                 cluster, force_remote=True, warm_runs=1,
+                                 rtol=F32_LANE_RTOL if mgr else 1e-9)
+            r["query"] = f"tpch22_remote_q{q}"
+            r["launches"] = launches[r["query"]] = dict(ck.LAUNCHES)
+            emit(r)
+            log(f"remote q{q}: warm-up {r['cold_wall_s']:.3f} s, {r['wall_s']:.3f} s, "
+                f"{r['stages']} stages, tasks {r['tasks_per_stage']}, device passes "
+                f"{r['device_passes_per_stage']}, launches "
+                f"{ {k: v for k, v in r['launches'].items() if v} }")
+    finally:
+        stop_remote_cluster(cluster[0], cluster[2])
+    emit({"query": "tpch22_remote", "wall_s": time.time() - t_b})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=10.0)
@@ -4673,6 +4901,7 @@ def main(argv=None) -> int:
         ORACLE.submit([(_query_sql(q), q4_dir) for q, (which, _) in SORTED_QUERIES.items()
                        if which == "small"] + [(_query_sql(q), q4_dir) for q in (5, 12, 1, 4)])
         submit_mesh_oracle(q4_dir)
+        ORACLE.submit_tpch_forms(TPCH22_FORMS, q4_dir)  # phase 16 (a)'s
         wait_generate(ds_big, ds_big_dir, TPCDS_BIG_SCALE, "tpcds")
         ORACLE.submit_tpcds(TPCDS_BIG_QUERIES, ds_big_dir)
         # phase 12's answers last in this pool: --scale's go to the next
@@ -4900,6 +5129,16 @@ def main(argv=None) -> int:
         cold_path_phase(q4_dir, dev, cold_answers, launches, late,
                         lambda r: emit(r, args.q4_scale))
         log(f"cold path phase took {time.time() - t15:.1f}s, done at {time.time() - t0:.1f}s")
+        # TPC-H 22: the launch counts are set to 0 just before each query's
+        # runs and read just after them
+        t16 = time.time()
+        late = time.time() - t0 > LATE_AT["tpch22"]
+        if late:
+            log(f"tpch22 reached past {LATE_AT['tpch22']:g}s: its late form (one warm "
+                "run, no traced run)")
+        tpch22_phase(q4_dir, dev, busy_ok and not late, late, launches,
+                     lambda r: emit(r, args.q4_scale))
+        log(f"tpch22 phase took {time.time() - t16:.1f}s, done at {time.time() - t0:.1f}s")
         path_of = {"masked_group_reduce": (4,),
                    "hash_probe": (5, 21, "q21_large", "q5_grace", "q5_small"),
                    "dict_filter": (12, "q12_small"),
@@ -4912,6 +5151,7 @@ def main(argv=None) -> int:
         serving = [k for k in launches if str(k).startswith("serving_")]
         mesh = [k for k in launches if str(k).startswith("mesh_")]
         cold = [k for k in launches if str(k).startswith(("cold_", "s3_"))]
+        tpch22 = [k for k in launches if str(k).startswith("tpch22_")]
         for krec in krecs:
             krec["standalone_launches"] = sum(launches[q][krec["name"]] for q in standalone)
             krec["remote_launches"] = sum(launches[q][krec["name"]] for q in remote)
@@ -4921,11 +5161,13 @@ def main(argv=None) -> int:
             krec["cli_launches"] = launches["cli_remote"].get(krec["name"], 0)
             krec["mesh_launches"] = sum(launches[q].get(krec["name"], 0) for q in mesh)
             krec["cold_path_launches"] = sum(launches[q].get(krec["name"], 0) for q in cold)
+            krec["tpch22_launches"] = sum(launches[q].get(krec["name"], 0) for q in tpch22)
             krec["launches"] = (sum(launches[q][krec["name"]] for q in path_of[krec["name"]])
                                 + krec["standalone_launches"] + krec["remote_launches"]
                                 + krec["tpcds_launches"] + krec["daemon_launches"]
                                 + krec["serving_launches"] + krec["cli_launches"]
-                                + krec["mesh_launches"] + krec["cold_path_launches"])
+                                + krec["mesh_launches"] + krec["cold_path_launches"]
+                                + krec["tpch22_launches"])
             if krec["launches"] < 1:
                 raise AssertionError(f"the main path launched {krec['name']} no time")
         log(f"path phase done at {time.time() - t0:.1f}s")

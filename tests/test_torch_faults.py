@@ -339,3 +339,31 @@ def test_min_max_over_strings_declines():
                      "SELECT k, max(v) AS hi, min(v) AS lo FROM t GROUP BY k ORDER BY k")
     stages = [n for n in iter_plan(phys) if isinstance(n, TpuStageExec)]
     assert stages and all(s.tpu_count == 1 and s.fallback_count == 0 for s in stages)
+
+
+def test_shuffle_reader_counts_every_partition_it_reads(tmp_path):
+    # C27: a ShuffleReaderExec that executes several partitions in one task
+    # (a single-task stage under CoalescePartitionsExec) kept the last
+    # partition's data-plane counters, so a read that answered rows could
+    # report none (both packages); the port sums them over its partitions
+    import pyarrow.ipc as ipc
+
+    from ballista_tpu_torch.plan.physical import TaskContext
+    from ballista_tpu_torch.plan.schema import DFSchema
+    from ballista_tpu_torch.shuffle.reader import ShuffleReaderExec
+    from ballista_tpu_torch.shuffle.types import PartitionLocation
+
+    tbl = pa.table({"x": _i64([1, 2, 3])})
+    locs = []
+    for p in range(2):
+        path = tmp_path / f"data-{p}.arrow"
+        with ipc.new_stream(str(path), tbl.schema) as w:
+            w.write_table(tbl)
+        locs.append([PartitionLocation(p, "job", 1, p, path=str(path))])
+    locs.append([])  # the last partition reads nothing
+    reader = ShuffleReaderExec(DFSchema.from_arrow(tbl.schema), locs)
+    ctx = TaskContext()
+    read = [b for p in range(3) for b in reader.execute(p, ctx) if b.num_rows]
+    assert sum(b.num_rows for b in read) == 6
+    assert reader.metrics.extra["bytes_read_local"] == sum(b.nbytes for b in read) > 0
+    assert reader.metrics.extra["fetch_rpcs"] == 0
