@@ -25,9 +25,14 @@ their C interfaces.
   CTAs holds twice that, reading each other's halves through distributed
   shared memory; what no block holds is read through L2.
 - `dict_filter` (:467): a string predicate over dictionary codes,
-  keep = mask & lut[codes]. Bound: bytes, P*N*(4 + 1) read, P*N written.
-  It stages a small LUT (up to 48 KB) into shared memory once per block
-  and reads a larger one through the read-only cache.
+  keep = mask & lut[codes], the mask optional (None keeps every row and
+  is never read). Bound: bytes, P*N*(4 + 1) read (P*N*4 without a mask),
+  P*N written. The LUT is kept as bits in a regime chosen from T
+  (`dict_filter_regime`): one register word up to 32 entries, a bitmap
+  in every CTA's shared memory up to what its opt-in limit holds, a
+  bitmap in device memory (packed by one small launch) past that; a
+  persistent grid streams the rows with several 16-byte loads in flight
+  a thread (a ring of bulk-copy stages measured slower).
 - `segmented_sort` (:284): a per-row ascending sort of [P, N] triples
   (i64 a, i64 b, i32 pos), N a power of two. Bound: bytes, P*N*20 read
   and written; one row of 2^20 lanes is 20 MB, far beyond one block's
@@ -75,6 +80,9 @@ LAUNCHES = {"masked_group_reduce": 0, "hash_probe": 0, "dict_filter": 0,
 # served which table on a path; the shapes grow with the tables a
 # long-lived executor or daemon probes, so the oldest shape goes first
 HASH_PROBE_LAUNCHES = LruDict(1024)
+# analysis: ignore[bounded-cache] dict_filter's launches by (P, N, T, regime, masked); _count drops the oldest shape past DF_SHAPES_MAX, under the one lock that counts
+DICT_FILTER_LAUNCHES: dict = {}
+DF_SHAPES_MAX = 1024
 _count_lock = threading.Lock()
 
 
@@ -92,12 +100,21 @@ def reset_launches() -> None:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
         HASH_PROBE_LAUNCHES.clear()
+        DICT_FILTER_LAUNCHES.clear()
 
 
 def _count(name: str, shape: tuple | None = None) -> None:
+    """One launch of `name`; `shape` keys hash_probe's and dict_filter's
+    launches by shape and regime."""
     with _count_lock:
         LAUNCHES[name] += 1
-        if shape is not None:
+        if shape is None:
+            return
+        if name == "dict_filter":  # a plain dict: no lock besides this one
+            if shape not in DICT_FILTER_LAUNCHES and len(DICT_FILTER_LAUNCHES) >= DF_SHAPES_MAX:
+                del DICT_FILTER_LAUNCHES[next(iter(DICT_FILTER_LAUNCHES))]  # the oldest shape
+            DICT_FILTER_LAUNCHES[shape] = DICT_FILTER_LAUNCHES.get(shape, 0) + 1
+        else:
             HASH_PROBE_LAUNCHES[shape] = HASH_PROBE_LAUNCHES.get(shape, 0) + 1
 
 
@@ -234,10 +251,11 @@ def hash_probe_plain(keys, table, mask):
                                                   device=rows.device)), matched
 
 
-def dict_filter_plain(codes, lut, mask):
+def dict_filter_plain(codes, lut, mask=None):
     """Plain PyTorch form of `dict_filter`: keep = mask & lut[codes] (the
-    engine's clamping gather)."""
-    return mask.to(torch.bool) & take(lut.to(torch.bool), codes)
+    engine's clamping gather); no mask keeps every row."""
+    keep = take(lut.to(torch.bool), codes)
+    return keep if mask is None else mask.to(torch.bool) & keep
 
 
 def _aligned(t: torch.Tensor, align: int) -> torch.Tensor:
@@ -248,12 +266,13 @@ def _aligned(t: torch.Tensor, align: int) -> torch.Tensor:
 
 
 def _check_gather_args(name: str, idx, table, mask) -> None:
+    """`mask` None: dict_filter keeps every row."""
     if idx.device.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for {idx.device}")
-    if idx.dim() != 2 or mask.shape != idx.shape or table.dim() != 1:
+    if idx.dim() != 2 or (mask is not None and mask.shape != idx.shape) or table.dim() != 1:
         raise ValueError(f"{name}: index and mask must share one [P, N] shape, "
                          "the table must be 1-D")
-    if table.device != idx.device or mask.device != idx.device:
+    if table.device != idx.device or (mask is not None and mask.device != idx.device):
         raise ValueError(f"{name}: inputs on different devices")
     if table.shape[0] < 1 or table.shape[0] >= 2**31:
         raise ValueError(f"{name}: table length {table.shape[0]} out of range")
@@ -385,41 +404,127 @@ def hash_probe(keys, table, mask):
     return rows, matched
 
 
-def dict_filter(codes, lut, mask):
+DF_REGISTER_MAX = 32  # entries of the register regime: one 32-bit word
+_DF_REGIMES = ("register", "shared", "global")  # dict_filter.cu's Regime
+# past this many entries the shared regime copies a bitmap packed by one
+# small launch, where every CTA would otherwise read the whole byte LUT (on
+# an H100 the CTAs' own packing costs nothing measurable at 4096 entries
+# and more than the launch at 2^17, PERF.md)
+DF_CTA_PACK_MAX = 16384
+
+
+def dict_filter_bitmap_max(smem_optin_bytes: int) -> int:
+    """The most LUT entries a CTA's shared bitmap holds: its opt-in shared
+    memory in whole 32-bit words."""
+    return smem_optin_bytes // 4 * 32
+
+
+def dict_filter_regime(T: int, smem_optin_bytes: int) -> str:
+    """Where `dict_filter` keeps a LUT of T entries, as bits, from T alone:
+    "register" (T <= 32, one word a thread), "shared" (T <=
+    dict_filter_bitmap_max, a bitmap in every CTA's shared memory),
+    "global" (a bitmap in device memory, read through L1 and L2)."""
+    if T <= DF_REGISTER_MAX:
+        return "register"
+    if T <= dict_filter_bitmap_max(smem_optin_bytes):
+        return "shared"
+    return "global"
+
+
+@functools.cache
+def _df_lib():
+    """(df_launch, df_prepare, df_max_ctas), bound once."""
+    return (_bind("dict_filter", "df_launch",
+                  [_VP, _VP, _VP, ctypes.c_int, _VP, _VP, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, _VP]),
+            _bind("dict_filter", "df_prepare", [ctypes.c_int]),
+            _bind("dict_filter", "df_max_ctas", [ctypes.c_int] * 2 + [_INT_P]))
+
+
+# analysis: ignore[bounded-cache] one entry per card ordinal of this host
+_DF_OPTIN: dict = {}
+# analysis: ignore[bounded-cache] (card ordinal, LUT length) -> launch plan; dropped whole past DF_SHAPES_MAX entries
+_DF_PLANS: dict = {}
+
+
+def dict_filter_smem_optin(dev) -> int:
+    """The opt-in shared memory of one block on card `dev` (current), in
+    bytes; the shared regime's kernel is readied for it the first time."""
+    optin = _DF_OPTIN.get(dev.index)
+    if optin is None:
+        optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+        rc = _df_lib()[1](optin)
+        if rc != 0:
+            raise RuntimeError(f"dict_filter: df_prepare failed: CUDA error {rc}")
+        _DF_OPTIN[dev.index] = optin
+    return optin
+
+
+def _df_plan(dev, T: int) -> tuple[str, int, bool]:
+    """(regime, grid, whether a launch packs the bitmap first: the global
+    regime's, and the shared regime's past DF_CTA_PACK_MAX entries) of a
+    LUT of T entries on card `dev`, which is current; once per LUT length."""
+    plan = _DF_PLANS.get((dev.index, T))
+    if plan is None:
+        regime = dict_filter_regime(T, dict_filter_smem_optin(dev))
+        ctas = ctypes.c_int(0)
+        rc = _df_lib()[2](_DF_REGIMES.index(regime), T, ctypes.byref(ctas))
+        if rc != 0:
+            raise RuntimeError(f"dict_filter: df_max_ctas failed: CUDA error {rc}")
+        plan = (regime, ctas.value,
+                regime == "global" or (regime == "shared" and T > DF_CTA_PACK_MAX))
+        if len(_DF_PLANS) >= DF_SHAPES_MAX:
+            _DF_PLANS.clear()
+        _DF_PLANS[(dev.index, T)] = plan
+    return plan
+
+
+def _df_ready(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`t` as the kernel reads it: `dtype`, contiguous, 16-byte aligned;
+    `t` itself when it already is."""
+    if t.dtype == dtype and t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return _aligned(t.to(dtype), 16)
+
+
+def dict_filter(codes, lut, mask=None):
     """String predicate over dictionary codes: keep = mask & lut[codes].
 
     codes: int [P, N] dictionary indices (pre-clamped into [0, T)); lut:
     bool [T], the host-compiled truth table (pow2-padded); mask: bool
-    [P, N]. Returns keep bool [P, N].
+    [P, N], or None to keep every row (nothing is read for it). Returns
+    keep bool [P, N]. The regime comes from T (`dict_filter_regime`).
     """
     if codes.device.type == "cpu":
         return dict_filter_plain(codes, lut, mask)
     _check_gather_args("dict_filter", codes, lut, mask)
-    dev = codes.device
-    c = _aligned(codes.to(torch.int32), 16)
-    m = _aligned(mask.to(torch.bool), 4)
-    tab = lut.to(torch.bool).contiguous()
-    keep = torch.empty(c.shape, dtype=torch.bool, device=dev)
-    if c.numel() == 0:  # nothing to filter, nothing launched
+    c = _df_ready(codes, torch.int32)
+    tab = _df_ready(lut, torch.bool)
+    m = None if mask is None else _df_ready(mask, torch.bool)
+    dev = c.device
+    keep = torch.empty_like(c, dtype=torch.bool)
+    n = c.numel()
+    if n == 0:  # nothing to filter, nothing launched
         return keep
-    launch = _bind("dict_filter", "df_launch",
-                   [_VP, _VP, _VP, ctypes.c_int, _VP, ctypes.c_longlong, ctypes.c_int, _VP])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(c.data_ptr(), m.data_ptr(), tab.data_ptr(), int(tab.shape[0]),
-                    keep.data_ptr(), c.numel(), _num_sms(dev), stream)
+    T = tab.shape[0]
+    with _on(dev):
+        regime, ctas, packs_first = _df_plan(dev, T)
+        packed = torch.empty(-(-T // 32), dtype=torch.int32, device=dev) if packs_first else None
+        rc = _df_lib()[0](c.data_ptr(), None if m is None else m.data_ptr(), tab.data_ptr(),
+                          T, None if packed is None else packed.data_ptr(), keep.data_ptr(), n,
+                          _DF_REGIMES.index(regime), ctas,
+                          torch.cuda.current_stream(dev.index).cuda_stream)
     if rc != 0:
         raise _launch_error("dict_filter", rc)
-    _count("dict_filter")
+    _count("dict_filter", (*c.shape, T, regime, m is not None))
     return keep
 
 
 def smem_max_entries(name: str) -> int:
     """Largest table (entries) every block of the kernel stages within the
-    default 48 KB of shared memory: dict_filter reads a larger LUT through
-    the read-only cache; hash_probe stages a larger one with the opt-in
-    limit (hash_probe_regime)."""
-    fn = {"hash_probe": "hp_smem_max_entries", "dict_filter": "df_smem_max_entries"}[name]
+    default 48 KB of shared memory (hash_probe: past it, the opt-in limit,
+    hash_probe_regime)."""
+    fn = {"hash_probe": "hp_smem_max_entries"}[name]
     return int(_bind(name, fn, [])())
 
 

@@ -258,7 +258,9 @@ def _lut_pred(ctx: Lowering, col: Column, i: int, builder, neg: bool,
     string predicate (=, <>, IN, LIKE). With `kernel` (=, <> and LIKE) and
     the Lowering's `pallas_dict_filter` flag, [P, N] codes go through the
     `dict_filter` kernel, whose mask is the valid plane under = and LIKE
-    and all-true under the negated forms (the valid plane handles nulls
+    and none under the negated forms or without a valid plane, where the
+    reference hands its kernel an all-true [P, N] mask: the same keep,
+    without that mask's fill and read (the valid plane handles nulls
     downstream either way)."""
     src = lower_expr(col, ctx)
     li = ctx.add_lut(ctx.slots[i], builder)
@@ -269,9 +271,7 @@ def _lut_pred(ctx: Lowering, col: Column, i: int, builder, neg: bool,
         if kernel and ctx.pallas_dict_filter and v.arr.dim() == 2:
             from ballista_tpu_torch.ops.cuda.cuda_kernels import dict_filter
 
-            mask = (v.valid if (v.valid is not None and not neg)
-                    else torch.ones(v.arr.shape, dtype=torch.bool, device=v.arr.device))
-            out = dict_filter(v.arr, lut, mask)
+            out = dict_filter(v.arr, lut, None if neg else v.valid)
         else:
             out = take(lut, v.arr)
         return DevVal("bool", ~out if neg else out, valid=v.valid)

@@ -18,11 +18,17 @@ engine's cap; 70% of slots present), keys in [0, T), 90% of the mask
 set: CUDA-event ms per call over 50 calls through the wrapper,
 device ms per call from a torch.profiler trace of 20 calls (the union of
 the device events, memsets included) and the host's ms per call to
-enqueue 200 calls. The same for the library yardsticks `torch.topk`,
-`torch.bincount` and `torch.take` on the same inputs, under "library".
+enqueue them (the least of 5 batches of 40 calls). The same for the
+library yardsticks `torch.topk`, `torch.bincount` and `torch.take` on the
+same inputs, under "library".
 Where the checkout has hash_probe's regimes, each hash_probe
 entry names the regime T chose, and the tables on both sides of the
-split/cluster boundary (T = 9/4 S and one more) are timed too. Prints one
+split/cluster boundary (T = 9/4 S and one more) are timed too. Then
+`dict_filter` at q12's [8, 2097152] over LUTs of T = 8 (q12), 2^17 and
+2^22, 90% of the mask set, with `torch.take` beside each T; where the
+checkout has `dict_filter_regime`, at T = 8 without a mask too, each
+entry naming the regime T chose. Last, the host's microseconds a call of
+each public way to reach the current stream's handle (`stream_call_us`). Prints one
 JSON line per checkout, after the card's name and power limit. Needs a
 CUDA card; exits non-zero without one.
 """
@@ -79,14 +85,16 @@ def device_ms(fn, iters=20):
     return busy / 1e3 / iters if spans else None
 
 
-def host_ms(fn, iters=200):
+def host_ms(fn, batches=5, iters=40):
+    best = float("inf")
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        best = min(best, (time.perf_counter() - t) / iters * 1e3)
     torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    dt = (time.perf_counter() - t) / iters * 1e3
-    torch.cuda.synchronize()
-    return dt
+    return best
 
 
 def times(fn):
@@ -159,6 +167,41 @@ for T, present in tables:
     keys_l = keys.long()
     lib[f"torch.take [{P}, {n}] T={T}"] = times(lambda: torch.take(table, keys_l))
     del keys, keys_l, mask, got, want
+P, n = 8, 2097152
+df_rng = np.random.default_rng(18)
+df_regimes = hasattr(ck, "dict_filter_regime")
+dmask = torch.as_tensor(df_rng.random((P, n), dtype=np.float32) < 0.9, device=dev)
+for T in (8, 1 << 17, 1 << 22):
+    lut = torch.as_tensor(df_rng.random(T) < 0.4, device=dev)
+    codes = torch.as_tensor(df_rng.integers(0, T, (P, n), dtype=np.int32), device=dev)
+    for m in ((dmask, None) if df_regimes and T == 8 else (dmask,)):
+        got, want = ck.dict_filter(codes, lut, m), ck.dict_filter_plain(codes, lut, m)
+        assert torch.equal(got, want), T
+        name = f"dict_filter [{P}, {n}] T={T}" + ("" if m is not None else " no mask")
+        out[name] = times(lambda: ck.dict_filter(codes, lut, m))
+        if df_regimes:
+            out[name]["regime"] = ck.dict_filter_regime(T, ck.dict_filter_smem_optin(dev))
+    codes_l = codes.long()
+    lib[f"torch.take [{P}, {n}] T={T}"] = times(lambda: torch.take(lut, codes_l))
+    del codes, codes_l, got, want
+
+
+def per_call_us(fn, iters=20000):
+    fn()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t) / iters * 1e6
+
+
+out["stream_call_us"] = {
+    "torch.cuda.current_stream(dev).cuda_stream":
+        per_call_us(lambda: torch.cuda.current_stream(dev).cuda_stream),
+    "torch.cuda.current_stream(0).cuda_stream":
+        per_call_us(lambda: torch.cuda.current_stream(0).cuda_stream),
+    "torch.cuda.current_stream().cuda_stream":
+        per_call_us(lambda: torch.cuda.current_stream().cuda_stream),
+}
 print(json.dumps(out), flush=True)
 '''
 

@@ -22,8 +22,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    sides of every regime boundary (T = 12288, S, 9/4 S and 8S, S one
    block's opt-in shared memory in entries), each in the regime
    hash_probe_regime picks, exact (library call torch.take); dict_filter
-   at q12's P=8, N=2097152, T=8, and T=4096
-   and T=1<<17 (the global-LUT regime), exact (library call torch.take);
+   at q12's P=8, N=2097152 with T = 8 (q12), 256 (q14's p_type), 4096,
+   2^17 and 2^22, each with and without a mask, and on both sides of every
+   regime boundary (T = 32, the opt-in shared bitmap's last entry) and of
+   the shared bitmap's packing (16384) at a ragged [8, 262147], each in the regime dict_filter_regime picks, exact
+   (library call torch.take); the q12, q14 and q19 runs print its launches
+   by (P, N, T, regime, masked);
    segmented_sort at the window shape [1, 2^20], at [1, 2^18] and
    [4, 4096], with ties and padding sentinels, and at the edges (rows
    below the 2048-lane tile, an odd count of merge passes, P > 1, rows of
@@ -703,15 +707,16 @@ def _bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
 
 def _timings(kernel, plain, library, busy_ok: bool, plain_iters: int = 10) -> dict:
     """CUDA-event means of the kernel's wrapper (50 launches), its plain
-    form (`plain_iters`) and the library call (50); the device times of the kernel
-    and of the library call from the checked profiler method (20 calls
-    each), None when unchecked, with the kernel's device events per call
-    by name (its launches, memsets and copies)."""
+    form (`plain_iters`) and the library call (50; None: not timed); the
+    device times of the kernel and of the library call from the checked
+    profiler method (20 calls each), None when unchecked, with the kernel's
+    device events per call by name (its launches, memsets and copies)."""
     by_name: dict = {}
     busy = device_busy_ms(kernel, 20, by_name=by_name) if busy_ok else None
-    lib_busy = device_busy_ms(library, 20) if busy_ok else None
+    lib_busy = device_busy_ms(library, 20) if busy_ok and library is not None else None
     return {"ms": cuda_ms(kernel, 50), "device_ms": None if busy is None else busy / 20,
-            "plain_ms": cuda_ms(plain, plain_iters, warmup=1), "library_ms": cuda_ms(library, 50),
+            "plain_ms": cuda_ms(plain, plain_iters, warmup=1),
+            "library_ms": None if library is None else cuda_ms(library, 50),
             "library_device_ms": None if lib_busy is None else lib_busy / 20,
             "device_events_per_call": {n[:60]: c / 20 for n, (_, c) in by_name.items()}}
 
@@ -729,7 +734,8 @@ def gather_phase(dev, busy_ok: bool) -> list[dict]:
     """hash_probe and dict_filter against their plain forms: exact, reruns
     bitwise identical, at the main path's shapes and at large tables.
     Returns one record per kernel at its main-path shape, with hash_probe's
-    other tables under "tables" and dict_filter's large LUT under "large"."""
+    other tables under "tables" and dict_filter's other LUTs under "cases"
+    (dict_filter_cases)."""
     import numpy as np
     import torch
 
@@ -795,39 +801,84 @@ def gather_phase(dev, busy_ok: bool) -> list[dict]:
                     "replaces": "ballista_tpu/ops/tpu/pallas_kernels.py:185",
                     "max_abs_err": 0.0, **main})
 
+    records.append(dict_filter_cases(dev, busy_ok, rng))
+    return records
+
+
+def _dict_filter_exact(label: str, codes, lut, mask) -> None:
+    """dict_filter against its plain form: exact, two runs bitwise identical."""
+    import torch
+
+    from ballista_tpu_torch.ops.cuda import cuda_kernels as ck
+
+    k1 = ck.dict_filter(codes, lut, mask)
+    k2 = ck.dict_filter(codes, lut, mask)
+    kp = ck.dict_filter_plain(codes, lut, mask)
+    torch.cuda.synchronize()
+    if not torch.equal(k1, k2):
+        raise AssertionError(f"dict_filter {label}: two runs differ bitwise")
+    if not torch.equal(k1, kp):
+        raise AssertionError(f"dict_filter {label}: differs from the plain form")
+
+
+def dict_filter_cases(dev, busy_ok: bool, rng) -> dict:
+    """dict_filter at q12's shape [8, 2097152], timed with and without a
+    mask at T = 8 (q12, register regime), 256 (q14's p_type), 4096, 2^17 and
+    2^22 (global), torch.take beside each T; then every regime boundary
+    (T = 32 | 33, the opt-in bitmap's last entry | one more) and the shared
+    bitmap's packing (in every CTA | one launch first) at a ragged
+    [8, 262147], exact only. Returns the record of T = 8 with a mask, the
+    others under "cases"."""
+    import torch
+
+    from ballista_tpu_torch.ops.cuda import cuda_kernels as ck
+
+    optin = ck.dict_filter_smem_optin(dev)
+    B = ck.dict_filter_bitmap_max(optin)
+    log(f"dict_filter: opt-in {optin} B a block, shared bitmap up to {B} entries")
+    P, N = 8, 2097152
     df = {}
-    for P, N, T in ((8, 2097152, 8), (8, 2097152, 4096), (8, 2097152, 1 << 17)):
+    for T in (8, 256, 4096, 1 << 17, 1 << 22):
         lut = torch.as_tensor(rng.random(T) < 0.4, device=dev)
         codes = torch.randint(0, T, (P, N), dtype=torch.int32, device=dev)
         mask = torch.rand((P, N), device=dev) < 0.9
-        k1 = ck.dict_filter(codes, lut, mask)
-        k2 = ck.dict_filter(codes, lut, mask)
-        kp = ck.dict_filter_plain(codes, lut, mask)
-        torch.cuda.synchronize()
-        if not torch.equal(k1, k2):
-            raise AssertionError(f"dict_filter T={T}: two runs differ bitwise")
-        if not torch.equal(k1, kp):
-            raise AssertionError(f"dict_filter T={T}: differs from the plain form")
-        regime = "shared" if T <= ck.smem_max_entries("dict_filter") else "global"
-        log(f"dict_filter P={P} N={N} T={T} ({regime} LUT): exact, reruns bitwise identical")
-        if T == 4096:
-            continue
         codes_l = codes.long()
-        rec = _timings(lambda: ck.dict_filter(codes, lut, mask),
-                       lambda: ck.dict_filter_plain(codes, lut, mask),
-                       lambda: torch.take(lut, codes_l), busy_ok)
-        # codes (4 B) and mask (1 B) read, keep (1 B) written per row, the
-        # LUT read once; a compare and an and per row
-        rec["bound_ms"], rec["bound_by"] = _bound(P * N * 6 + T, 2 * P * N)
-        rec.update(shape=[P, N, T], table=regime)
-        df[T] = rec
-    main = df[8]
-    main["large"] = df[1 << 17]
-    records.append({"name": "dict_filter", "route": "cuda",
-                    "source": "ballista_tpu_torch/ops/cuda/csrc/dict_filter.cu",
-                    "replaces": "ballista_tpu/ops/tpu/pallas_kernels.py:467",
-                    "max_abs_err": 0.0, **main})
-    return records
+        regime = ck.dict_filter_regime(T, optin)
+        library = lambda: torch.take(lut, codes_l)  # noqa: E731
+        for masked in (True, False):
+            m = mask if masked else None
+            label = f"T={T} {'mask' if masked else 'no mask'}"
+            _dict_filter_exact(label, codes, lut, m)
+            rec = _timings(lambda: ck.dict_filter(codes, lut, m),
+                           lambda: ck.dict_filter_plain(codes, lut, m),
+                           library if masked else None, busy_ok)
+            if not masked:  # the same torch.take, timed once a T
+                rec["library_ms"] = df[(T, True)]["library_ms"]
+                rec["library_device_ms"] = df[(T, True)]["library_device_ms"]
+            # codes (4 B) and mask (1 B, none without one) read, keep (1 B)
+            # written per row, the LUT read once; a compare and an and per row
+            rec["bound_ms"], rec["bound_by"] = _bound(P * N * (6 if masked else 5) + T,
+                                                      2 * P * N)
+            rec.update(shape=[P, N, T], regime=regime, masked=masked)
+            log(f"dict_filter {label} ({regime}): exact, reruns bitwise identical; "
+                f"{rec['ms']:.4f} ms (device {rec['device_ms']}), bound {rec['bound_ms']:.4f} ms, "
+                f"torch.take {rec['library_ms']:.4f} ms (device {rec['library_device_ms']})")
+            df[(T, masked)] = rec
+        del codes, codes_l, mask
+    for T in (32, 33, ck.DF_CTA_PACK_MAX, ck.DF_CTA_PACK_MAX + 1, B, B + 1):
+        lut = torch.as_tensor(rng.random(T) < 0.4, device=dev)
+        codes = torch.randint(0, T, (8, 262147), dtype=torch.int32, device=dev)
+        mask = torch.rand((8, 262147), device=dev) < 0.9
+        for m in (mask, None):
+            _dict_filter_exact(f"edge T={T}", codes, lut, m)
+        log(f"dict_filter edge T={T} ({ck.dict_filter_regime(T, optin)}), with and without a "
+            "mask: exact, reruns bitwise identical")
+    main = df.pop((8, True))
+    main["cases"] = list(df.values())
+    return {"name": "dict_filter", "route": "cuda",
+            "source": "ballista_tpu_torch/ops/cuda/csrc/dict_filter.cu",
+            "replaces": "ballista_tpu/ops/tpu/pallas_kernels.py:467",
+            "max_abs_err": 0.0, **main}
 
 
 def _mgr_inputs(P: int, N: int, G: int, dev, rng, kind: str = "random"):
@@ -2151,6 +2202,14 @@ def _probe_launches() -> list:
     from ballista_tpu_torch.ops.cuda import cuda_kernels as ck
 
     return [[*k, v] for k, v in sorted(ck.HASH_PROBE_LAUNCHES.items())]
+
+
+def _filter_launches() -> list:
+    """dict_filter's launches since the counts were last set to 0, as
+    [P, N, T, regime, masked, launches] rows."""
+    from ballista_tpu_torch.ops.cuda import cuda_kernels as ck
+
+    return [[*k, v] for k, v in sorted(ck.DICT_FILTER_LAUNCHES.items())]
 
 
 def _device_nodes(stages) -> dict:
@@ -4804,6 +4863,10 @@ def tpch22_phase(data_dir: str, dev, busy_ok: bool, late: bool, launches: dict,
         ck.reset_launches()
         r, tbl = run_tpch22_query(q, name, extra, data_dir, busy_ok, 1 if late else 3)
         r["launches"] = launches[r["query"]] = dict(ck.LAUNCHES)
+        r["dict_filter_launches"] = _filter_launches()
+        if r["dict_filter_launches"]:
+            log(f"q{q} {name}: dict_filter by (P, N, T, regime, masked) "
+                f"{r['dict_filter_launches']}")
         emit(r)
         if name == "auto":
             local[q] = (r, tbl)
@@ -4941,9 +5004,12 @@ def main(argv=None) -> int:
             r = recs[q] = run_query(q, path_dir, dev, busy_ok, answers)
             r["launches"] = launches[q] = dict(cuda_kernels.LAUNCHES)
             r["hash_probe_launches"] = _probe_launches()
+            r["dict_filter_launches"] = _filter_launches()
             emit(r, scale)
             log(f"q{q} done at {time.time() - t0:.1f}s; segmented_sort launches per run "
-                f"{[run['segmented_sort'] for run in r['kernel_launches_per_run']]}")
+                f"{[run['segmented_sort'] for run in r['kernel_launches_per_run']]}"
+                + (f"; dict_filter by (P, N, T, regime, masked) {r['dict_filter_launches']}"
+                   if r["dict_filter_launches"] else ""))
 
         def sorted_query(q: int, path_dir: str, scale: float, extra: dict) -> None:
             cuda_kernels.reset_launches()
@@ -5001,6 +5067,10 @@ def main(argv=None) -> int:
             cuda_kernels.reset_launches()
             r = small_recs[q] = run_query(q, q4_dir, dev, busy_ok, small_answers)
             r["launches"] = launches[f"q{q}_small"] = dict(cuda_kernels.LAUNCHES)
+            r["dict_filter_launches"] = _filter_launches()
+            if r["dict_filter_launches"]:
+                log(f"q{q} at SF{args.q4_scale:g}: dict_filter by (P, N, T, regime, masked) "
+                    f"{r['dict_filter_launches']}")
             emit(r, args.q4_scale)
         # out of core: the launch counts of the grace q5 runs are set to 0
         # just before each run and read just after it

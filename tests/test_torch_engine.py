@@ -86,6 +86,29 @@ def test_tpch_joins_byte_identical_to_jax_under_fused_pallas(q, tpch_dir):
     assert got.equals(want)
 
 
+@pytest.mark.parametrize("q", [12, 14, 19])
+def test_dict_filter_calls_take_int32_codes_and_no_mask(q, tpch_dir, monkeypatch):
+    # every TPC-H column is non-null: where the reference hands its kernel
+    # an all-true mask the port hands it none, and the codes arrive as the
+    # kernel reads them (int32, contiguous), so no conversion pass runs
+    # before it; the answers stay the JAX engine's (the test above)
+    from ballista_tpu_torch.ops.cuda import cuda_kernels as tck
+
+    calls = []
+    real = tck.dict_filter
+
+    def recording(codes, lut, mask=None):
+        calls.append((codes.dtype, codes.is_contiguous(), mask))
+        return real(codes, lut, mask)
+
+    monkeypatch.setattr(tck, "dict_filter", recording)
+    ctx = _port_ctx(tpch_dir, **{"ballista.tpu.fusion.mode": "fused_pallas"})
+    ctx.sql(tpch_query(q)).collect()
+    assert calls
+    assert all(dtype == torch.int32 and contiguous and mask is None
+               for dtype, contiguous, mask in calls)
+
+
 @pytest.mark.parametrize("q,kernel", [(5, "hash_probe"), (12, "dict_filter"),
                                       (14, "dict_filter"), (19, "dict_filter")])
 def test_kernel_calls_per_run_match_jax(q, kernel, tpch_dir, monkeypatch):

@@ -313,10 +313,108 @@ def test_dict_filter_matches_pallas(T, case):
         assert not tk.any()
 
 
+_DF_OPTINS = [232448, 101376]  # an H100's and an A100's opt-in shared memory a block
+
+
+@pytest.mark.parametrize("optin", _DF_OPTINS)
+def test_dict_filter_bitmap_max(optin):
+    # the opt-in shared memory in whole 32-bit words
+    B = ck.dict_filter_bitmap_max(optin)
+    assert B % 32 == 0 and B // 8 <= optin < (B + 32) // 8
+    assert ck.dict_filter_bitmap_max(232448) == 1859584
+
+
+@pytest.mark.parametrize("optin", _DF_OPTINS)
+@pytest.mark.parametrize("T,regime", [(1, "register"), (8, "register"), (32, "register"),
+                                      (33, "shared"), (256, "shared"), ("B", "shared"),
+                                      ("B+1", "global"), (1 << 24, "global")])
+def test_dict_filter_regime_boundaries(T, regime, optin):
+    B = ck.dict_filter_bitmap_max(optin)
+    T = {"B": B, "B+1": B + 1}.get(T, T)
+    assert ck.dict_filter_regime(T, optin) == regime
+
+
+def _wrapped_codes(codes, T, rng):
+    """Codes outside [0, T) too: negatives the engine's gather wraps once
+    (and some it then clamps to 0) and codes past T it clamps to T - 1."""
+    codes = codes.copy()
+    P, N = codes.shape
+    for lo, hi, share in ((-T, 0, 0.05), (-3 * T, -T, 0.02), (T, 3 * T + 5, 0.02)):
+        sel = rng.random((P, N)) < share
+        codes[sel] = rng.integers(lo, hi, int(sel.sum()))
+    return codes
+
+
+def _pack_lut_bits(lut):
+    """The bitmap the kernel looks codes up in: int32 [ceil(T / 32)], LUT
+    entry e at bit e & 31 of word e >> 5, 0 past T."""
+    T = lut.shape[0]
+    b = torch.zeros(-(-T // 32) * 32, dtype=torch.int64)
+    b[:T] = lut.to(torch.bool).to(torch.int64)
+    words = (b.view(-1, 32) << torch.arange(32)).sum(dim=1)
+    return (words - (words >= 1 << 31).to(torch.int64) * (1 << 32)).to(torch.int32)
+
+
+def _dict_filter_bits(codes, lut, mask=None):
+    """dict_filter as the kernel computes it, in plain torch: the engine's
+    clamping gather of the code, then bit c & 31 of word c >> 5, and the
+    mask."""
+    T = lut.shape[0]
+    c = codes.long()
+    c = torch.where(c < 0, c + T, c).clamp_(0, T - 1)
+    words = _pack_lut_bits(lut).to(torch.int64) & 0xFFFFFFFF
+    keep = ((words[c >> 5] >> (c & 31)) & 1).to(torch.bool)
+    return keep if mask is None else mask.to(torch.bool) & keep
+
+
+@pytest.mark.parametrize("T", [1, 8, 32, 33, 256, 4096])
+@pytest.mark.parametrize("N", [512, 301])
+def test_dict_filter_bitmap_form_matches_pallas(T, N):
+    # the kernel's arithmetic (pack into words, entry e at bit e & 31 of word
+    # e >> 5, then gather by c >> 5 and c & 31) against the plain form and
+    # the Pallas function, with wrapped negative and clamped codes and a
+    # ragged N, with and without a mask
+    from ballista_tpu.ops.tpu.pallas_kernels import dict_filter as jax_df
+
+    rng = np.random.default_rng(T * 7 + N)
+    codes, lut, mask = _filter_inputs(T + N, 3, N, T)
+    codes = _wrapped_codes(codes, T, rng)
+    words = _pack_lut_bits(torch.from_numpy(lut))
+    assert words.dtype == torch.int32 and words.shape == (-(-T // 32),)
+    for e in rng.integers(0, T, 16):
+        assert bool((int(words[e >> 5]) >> (e & 31)) & 1) == bool(lut[e])
+    for m in (mask, np.ones_like(mask)):
+        want = np.asarray(jax_df(codes, lut, m, block_n=128))
+        got = _dict_filter_bits(torch.from_numpy(codes), torch.from_numpy(lut),
+                                torch.from_numpy(m)).numpy()
+        np.testing.assert_array_equal(got, want)
+        plain = ck.dict_filter_plain(torch.from_numpy(codes), torch.from_numpy(lut),
+                                     torch.from_numpy(m)).numpy()
+        np.testing.assert_array_equal(plain, want)
+    no_mask = _dict_filter_bits(torch.from_numpy(codes), torch.from_numpy(lut)).numpy()
+    np.testing.assert_array_equal(no_mask, want)  # `want` had a mask of ones
+
+
+@pytest.mark.parametrize("T", [8, 4096])
+@pytest.mark.parametrize("N", [512, 300])
+def test_dict_filter_without_mask_matches_pallas_with_ones(T, N):
+    # mask=None keeps every row: the Pallas function's answer under a mask of ones
+    from ballista_tpu.ops.tpu.pallas_kernels import dict_filter as jax_df
+
+    codes, lut, mask = _filter_inputs(T + N + 1, 2, N, T)
+    want = np.asarray(jax_df(codes, lut, np.ones_like(mask), block_n=128))
+    got = ck.dict_filter(torch.from_numpy(codes), torch.from_numpy(lut), None)
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        ck.dict_filter_plain(torch.from_numpy(codes), torch.from_numpy(lut)).numpy(), want)
+
+
 def _lowered_pred(pkg, pred_expr, codes, valid, dictionary):
-    """Lower `pred_expr` over one nullable dictionary column `c` with the
-    dict_filter route on, in the JAX package or the port, and run it over
-    [P, N] codes. Returns (value, validity) as numpy."""
+    """Lower `pred_expr` over one dictionary column `c` (nullable unless
+    `valid` is None: no validity plane) with the dict_filter route on, in
+    the JAX package or the port, and run it over [P, N] codes. Returns
+    (value, validity) as numpy, validity None without a plane."""
     import pyarrow as pa
 
     kmod = __import__(f"{pkg}.ops.{'tpu' if pkg == 'ballista_tpu' else 'cuda'}.kernels",
@@ -326,18 +424,18 @@ def _lowered_pred(pkg, pred_expr, codes, valid, dictionary):
     ctx = kmod.Lowering(schema, [("code", 0)], [dictionary])
     ctx.pallas_dict_filter = True
     ctx.env_fns = [lambda cols, luts: kmod.DevVal("code", cols[0], 0, dictionary,
-                                                  valid=cols[1])]
+                                                  valid=cols[1] if len(cols) > 1 else None)]
     ctx.env_meta = [("code", 0, dictionary, 0)]
     fn = kmod.lower_expr(pred_expr(pkg), ctx)
     luts = ctx.build_luts([dictionary])
+    planes = [codes] if valid is None else [codes, valid]
     if pkg == "ballista_tpu":
         import jax.numpy as jnp
 
-        out = fn([jnp.asarray(codes), jnp.asarray(valid)], [jnp.asarray(l) for l in luts])
-        return np.asarray(out.arr), np.asarray(out.valid)
-    out = fn([torch.from_numpy(codes), torch.from_numpy(valid)],
-             [torch.from_numpy(l) for l in luts])
-    return out.arr.numpy(), out.valid.numpy()
+        out = fn([jnp.asarray(a) for a in planes], [jnp.asarray(l) for l in luts])
+        return np.asarray(out.arr), None if out.valid is None else np.asarray(out.valid)
+    out = fn([torch.from_numpy(a) for a in planes], [torch.from_numpy(l) for l in luts])
+    return out.arr.numpy(), None if out.valid is None else out.valid.numpy()
 
 
 def _ne(pkg):
@@ -355,11 +453,21 @@ def _not_like(pkg):
     return e.Like(e.Column("c"), "%URGENT", negated=True)
 
 
-@pytest.mark.parametrize("pred", [_ne, _eq, _not_like], ids=["ne", "eq", "not_like"])
+def _like(pkg):
+    e = __import__(f"{pkg}.plan.expressions", fromlist=["Like"])
+    return e.Like(e.Column("c"), "%URGENT", negated=False)
+
+
+_PREDS = [_ne, _eq, _not_like, _like]
+_PRED_IDS = ["ne", "eq", "not_like", "like"]
+
+
+@pytest.mark.parametrize("pred", _PREDS, ids=_PRED_IDS)
 def test_dict_filter_route_with_nulls_matches_jax(pred):
     # q12's o_orderpriority predicates over a nullable code column: the
-    # kernel's mask is the valid plane under = and all-true under <> and
-    # NOT LIKE, and the valid plane rides along unchanged
+    # kernel's mask is the valid plane under = and LIKE and none (the
+    # reference: all-true) under <> and NOT LIKE, and the valid plane rides
+    # along unchanged
     rng = np.random.default_rng(12)
     dictionary = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
     codes = rng.integers(0, len(dictionary), (2, 256)).astype(np.int32)
@@ -368,6 +476,35 @@ def test_dict_filter_route_with_nulls_matches_jax(pred):
     tv, tvalid = _lowered_pred("ballista_tpu_torch", pred, codes, valid, dictionary)
     np.testing.assert_array_equal(tvalid, jvalid)
     np.testing.assert_array_equal(tv, jv)
+
+
+@pytest.mark.parametrize("pred", _PREDS, ids=_PRED_IDS)
+def test_dict_filter_route_without_valid_plane_matches_jax(pred):
+    # a non-null column (every TPC-H one): the reference hands its kernel
+    # an all-true mask, the port none; the same answer, no validity plane
+    rng = np.random.default_rng(13)
+    dictionary = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
+    codes = rng.integers(0, len(dictionary), (3, 300)).astype(np.int32)
+    jv, jvalid = _lowered_pred("ballista_tpu", pred, codes, None, dictionary)
+    tv, tvalid = _lowered_pred("ballista_tpu_torch", pred, codes, None, dictionary)
+    assert jvalid is None and tvalid is None
+    np.testing.assert_array_equal(tv, jv)
+
+
+@pytest.mark.parametrize("valid", [True, False], ids=["nulls", "no_plane"])
+def test_dict_filter_route_passes_a_mask_only_where_it_filters(valid, monkeypatch):
+    # the valid plane under = and LIKE; no mask under <> and NOT LIKE or
+    # without a plane, where the reference builds an all-true one
+    masks = []
+    real = ck.dict_filter
+    monkeypatch.setattr(ck, "dict_filter",
+                        lambda codes, lut, mask: masks.append(mask) or real(codes, lut, mask))
+    dictionary = ["a", "b", "c"]
+    codes = np.zeros((1, 8), np.int32)
+    plane = np.ones((1, 8), bool) if valid else None
+    for pred in _PREDS:
+        _lowered_pred("ballista_tpu_torch", pred, codes, plane, dictionary)
+    assert [m is not None for m in masks] == [False, valid, False, valid]
 
 
 def test_dict_filter_route_counts_calls(monkeypatch):
@@ -483,17 +620,33 @@ def test_cuda_hash_probe_matches_plain_form(T):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("T", [8, 4096, 1 << 17])
-def test_cuda_dict_filter_matches_plain_form(T):
+@pytest.mark.parametrize("masked", [True, False], ids=["mask", "no_mask"])
+@pytest.mark.parametrize("T", [8, 4096, 1 << 17, 1, 32, 33, 16384, 16385, "B", "B+1", 1 << 22])
+def test_cuda_dict_filter_matches_plain_form(T, masked):
+    # every regime on both sides of each boundary (register 32 | 33 shared;
+    # the opt-in bitmap's last entry B | B+1 global) and the global regime at
+    # 2^22, the shared bitmap packed by every CTA | by one launch first
+    # (DF_CTA_PACK_MAX | + 1), with and without a mask, over wrapped and
+    # clamped codes and a ragged N: exact, two runs bitwise identical, the
+    # launch recorded under the regime T chooses
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     dev = torch.device("cuda", 0)
-    codes, lut, mask = (torch.from_numpy(a).to(dev) for a in _filter_inputs(6, 8, 262147, T))
-    k1 = ck.dict_filter(codes, lut, mask)
-    k2 = ck.dict_filter(codes, lut, mask)
-    kp = ck.dict_filter_plain(codes, lut, mask)
+    optin = ck.dict_filter_smem_optin(dev)
+    B = ck.dict_filter_bitmap_max(optin)
+    T = {"B": B, "B+1": B + 1}.get(T, T)
+    codes, lut, mask = _filter_inputs(6, 8, 262147, T)
+    codes = _wrapped_codes(codes, T, np.random.default_rng(6))
+    codes, lut, mask = (torch.from_numpy(a).to(dev) for a in (codes, lut, mask))
+    m = mask if masked else None
+    ck.reset_launches()
+    k1 = ck.dict_filter(codes, lut, m)
+    k2 = ck.dict_filter(codes, lut, m)
+    kp = ck.dict_filter_plain(codes, lut, m)
     torch.cuda.synchronize()
     assert torch.equal(k1, k2) and torch.equal(k1, kp)
+    regime = ck.dict_filter_regime(T, optin)
+    assert ck.DICT_FILTER_LAUNCHES == {(8, 262147, T, regime, masked): 2}
 
 
 # ---------------------------------------------------------------------------
