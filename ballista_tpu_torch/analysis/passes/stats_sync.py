@@ -24,7 +24,7 @@ import ast
 from ballista_tpu_torch.analysis.core import AnalysisPass, Analyzer, Finding
 
 EXEC_REL = "ballista_tpu_torch/executor/executor_process.py"
-STATS_REL = "ballista_tpu_torch/ops/cuda/stage_compiler.py"
+STATS_REL = "ballista_tpu_torch/utils/run_stats.py"
 
 _SINK_NAMES = {"RUN_STATS", "rec", "stats", "run_stats", "_rec", "srec"}
 

@@ -54,6 +54,7 @@ from ballista_tpu_torch.sql.ast import (
 from ballista_tpu_torch.sql.optimizer import optimize
 from ballista_tpu_torch.sql.parser import parse_sql
 from ballista_tpu_torch.sql.planner import SqlPlanner
+from ballista_tpu_torch.utils.run_stats import RUN_STATS
 
 
 class SessionContext:
@@ -183,6 +184,15 @@ class SessionContext:
     # -- SQL ---------------------------------------------------------------
 
     def sql(self, query: str) -> "DataFrame":
+        """Parse and plan `query`. The statement's id is minted here and
+        rides on the DataFrame to its collect()."""
+        sid = RUN_STATS.new_statement()
+        with RUN_STATS.statement(sid, "plan.sql"):
+            df = self._sql(query)
+        df.statement = sid
+        return df
+
+    def _sql(self, query: str) -> "DataFrame":
         stmt = parse_sql(query)
         if isinstance(stmt, CreateExternalTable):
             self.register_parquet(stmt.name, stmt.location)
@@ -253,22 +263,30 @@ class SessionContext:
         if engine_name == "tpu":
             from ballista_tpu_torch.engine.cuda_engine import maybe_compile_tpu
 
-            physical = maybe_compile_tpu(physical, self.config)
+            with RUN_STATS.span("plan.device"):
+                physical = maybe_compile_tpu(physical, self.config)
         ctx = TaskContext(self.config)
         n = physical.output_partition_count()
         batches: list[pa.RecordBatch] = []
         if n == 1:
             batches.extend(physical.execute(0, ctx))
         else:
+            scope = RUN_STATS.scope()
+
+            def run(p):
+                with RUN_STATS.within(scope):
+                    return list(physical.execute(p, ctx))
+
             with _fut.ThreadPoolExecutor(max_workers=min(n, 16)) as pool:
-                futs = [pool.submit(lambda p=p: list(physical.execute(p, ctx))) for p in range(n)]
+                futs = [pool.submit(run, p) for p in range(n)]
                 for f in futs:
                     batches.extend(f.result())
-        batches = [b for b in batches if b.num_rows]
-        schema = physical.schema()
-        if not batches:
-            return pa.table({f.name: pa.array([], f.type) for f in schema}, schema=schema)
-        return pa.Table.from_batches(batches, schema=schema)
+        with RUN_STATS.span("collect.arrow"):
+            batches = [b for b in batches if b.num_rows]
+            schema = physical.schema()
+            if not batches:
+                return pa.table({f.name: pa.array([], f.type) for f in schema}, schema=schema)
+            return pa.Table.from_batches(batches, schema=schema)
 
 
 class ClientPreparedStatement:
@@ -415,6 +433,7 @@ class DataFrame:
         self.ctx = ctx
         self.plan = plan
         self.sql_text = sql_text
+        self.statement: int | None = None  # minted by SessionContext.sql()
 
     @classmethod
     def _empty(cls, ctx: SessionContext, note: str) -> "DataFrame":
@@ -480,14 +499,19 @@ class DataFrame:
         return f"logical plan:\n{logical.display()}\nphysical plan:\n{physical.display()}"
 
     def collect(self) -> pa.Table:
-        if isinstance(self.plan, Explain):
-            return self._collect_explain()
-        if self.ctx.mode == "standalone":
-            return self._collect_standalone()
-        if self.ctx.mode == "remote":
-            return self.ctx._ensure_remote().collect(self)
-        physical = self.ctx.create_physical_plan(self.plan)
-        return self.ctx.execute_collect(physical)
+        """Run the plan; the statement scope of the spans is open
+        throughout (the sql() statement's id on a first collect)."""
+        sid, self.statement = self.statement or RUN_STATS.new_statement(), None
+        with RUN_STATS.statement(sid):
+            if isinstance(self.plan, Explain):
+                return self._collect_explain()
+            if self.ctx.mode == "standalone":
+                return self._collect_standalone()
+            if self.ctx.mode == "remote":
+                return self.ctx._ensure_remote().collect(self)
+            with RUN_STATS.span("plan.physical"):
+                physical = self.ctx.create_physical_plan(self.plan)
+            return self.ctx.execute_collect(physical)
 
     def _collect_standalone(self) -> pa.Table:
         """Submit through the in-process scheduler: real stages, real

@@ -354,8 +354,7 @@ class ExecutorProcess:
             return []
         out = []
         stats = sc.RUN_STATS.snapshot()
-        for key in ("fill_s", "encode_s", "upload_s", "compile_s",
-                    "compile_overlap_s", "exec_s", "device_bytes",
+        for key in ("fill_s", "encode_s", "upload_s", "exec_s", "device_bytes",
                     "fused_spans", "fused_kernel_s",
                     "mesh_devices", "exchange_bytes_on_device", "exchange_s",
                     "hbm_budget_bytes", "hbm_spill_bytes", "hbm_spill_events",

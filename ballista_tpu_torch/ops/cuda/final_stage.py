@@ -56,6 +56,7 @@ from ballista_tpu_torch.plan.physical import (
     _concat,
     _empty_batch,
 )
+from ballista_tpu_torch.utils.run_stats import RUN_STATS
 
 log = logging.getLogger(__name__)
 
@@ -236,6 +237,21 @@ def _segscan(values: torch.Tensor, boundary: torch.Tensor, func: str) -> torch.T
     return out
 
 
+def _host_int(t: torch.Tensor) -> int:
+    """A device scalar on the host: the pass blocks on the card here."""
+    with RUN_STATS.span("final.wait"):
+        RUN_STATS.count_sync()
+        return int(t)
+
+
+def _wait_stream(device) -> None:
+    """Wait for the pass on the current stream before the fetch, so the
+    wait and the copies are told apart: one host sync."""
+    RUN_STATS.count_sync()
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
 def _first_of_run(x: torch.Tensor) -> torch.Tensor:
     """True where a row differs from the row before it (and at row 0)."""
     out = torch.ones_like(x, dtype=torch.bool)
@@ -348,7 +364,8 @@ class TpuFinalStageExec(ExecutionPlan):
                 out = self._results.pop(partition)
                 self._note_served_locked(partition)
                 return out
-        return self._fallback(partition, ctx)
+        with RUN_STATS.span("final.cpu"):
+            return self._fallback(partition, ctx)
 
     def _daemon_run_all(self, ctx: TaskContext):
         """Route the final-merge stage through the device daemon.
@@ -394,7 +411,7 @@ class TpuFinalStageExec(ExecutionPlan):
             if hbm.is_resource_exhausted(e2):
                 raise Unsupported(f"final stage OOM persisted after spill+retry: {e2}") from e2
             raise
-        _sc.RUN_STATS.set("hbm_oom_retries", hbm.oom_retry_count())
+        RUN_STATS.set("hbm_oom_retries", hbm.oom_retry_count())
         return res
 
     def _note_served_locked(self, partition: int) -> None:
@@ -479,7 +496,11 @@ class TpuFinalStageExec(ExecutionPlan):
     # ------------------------------------------------------------------
 
     def _tpu_run_all(self, ctx: TaskContext) -> dict[int, list[pa.RecordBatch]]:
-        from ballista_tpu_torch.ops.cuda.stage_compiler import RUN_STATS, _put
+        with RUN_STATS.span("final"):
+            return self._tpu_run_final(ctx)
+
+    def _tpu_run_final(self, ctx: TaskContext) -> dict[int, list[pa.RecordBatch]]:
+        from ballista_tpu_torch.ops.cuda.stage_compiler import _put
         from ballista_tpu_torch.plan.physical import RepartitionExec
 
         child = self.child
@@ -500,15 +521,18 @@ class TpuFinalStageExec(ExecutionPlan):
         # the session quota is thread-local (one handler thread per request
         # in the daemon): re-scope it on the pool threads, or a daemon-routed
         # final stage would run its inner partials with no ceiling
+        # (the statement of the spans likewise)
         quota = hbm.active_session_quota()
 
-        def read(p):
-            with hbm.session_quota(quota):
+        def read(p, scope):
+            with hbm.session_quota(quota), RUN_STATS.within(scope):
                 return _concat([b for b in child.execute(p, ctx) if b.num_rows],
                                child.schema())
 
-        with _fut.ThreadPoolExecutor(max_workers=min(max(P_in, 1), 8)) as pool:
-            tables = list(pool.map(read, range(P_in)))
+        with RUN_STATS.span("final.input"), \
+                _fut.ThreadPoolExecutor(max_workers=min(max(P_in, 1), 8)) as pool:
+            scope = RUN_STATS.scope()
+            tables = list(pool.map(lambda p: read(p, scope), range(P_in)))
         # from here on the child's output is in hand: any decline below must
         # aggregate THESE tables on the CPU, not re-execute the child
         self._mat_input = (tables, child.df_schema, bypass)
@@ -518,7 +542,33 @@ class TpuFinalStageExec(ExecutionPlan):
         if total < max(self.min_rows, 1):
             raise Unsupported(f"only {total} rows (< tpu min)")
         device = runtime.device(ctx.device_ordinal)
+        with RUN_STATS.span("final.encode"):
+            cols_np, valids_np, mask_np, kinds, scales, dicts, P, N = self._encode(
+                tables, part_rows)
 
+        # lowering builds closures only (PyTorch runs eagerly): a fresh
+        # compile per run, no cache to key or lock
+        with RUN_STATS.span("final.lower"):
+            fn, lowering, meta = self._compile(
+                kinds, scales, dicts, valids_np, cols_np, P, N, merge_all=bypass)
+        with RUN_STATS.span("final.upload"):
+            luts = [_put(l, device) for l in lowering.build_luts(dicts)]
+            flat = [_put(c, device) for c in cols_np] + [
+                _put(v, device) for v in valids_np if v is not None
+            ]
+            mask = _put(mask_np, device)
+        with RUN_STATS.span("final.pass"):
+            outs = fn(flat, luts, mask)
+        with RUN_STATS.span("final.wait"):
+            _wait_stream(device)
+        with RUN_STATS.span("final.decode"):
+            return self._decode(outs, meta, P_result, dicts)
+
+    def _encode(self, tables: list[pa.Table], part_rows: list[int]):
+        """The partitions' tables as [P, N] host stacks: every column
+        encoded, the device budget enforced before any stacking. Returns
+        (columns, validity planes, row mask, kinds, scales, dictionaries,
+        P, N)."""
         full = pa.concat_tables(tables)
         dup = repeated_names(full.column_names)
         if dup:
@@ -581,18 +631,7 @@ class TpuFinalStageExec(ExecutionPlan):
         mask_np = np.zeros((P, N), dtype=bool)
         for p, r in enumerate(part_rows):
             mask_np[p, :r] = True
-
-        # lowering builds closures only (PyTorch runs eagerly): a fresh
-        # compile per run, no cache to key or lock
-        fn, lowering, meta = self._compile(
-            kinds, scales, dicts, valids_np, cols_np, P, N, merge_all=bypass)
-        luts = [_put(l, device) for l in lowering.build_luts(dicts)]
-        flat = [_put(c, device) for c in cols_np] + [
-            _put(v, device) for v in valids_np if v is not None
-        ]
-        mask = _put(mask_np, device)
-        outs = fn(flat, luts, mask)
-        return self._decode(outs, meta, P_result, dicts)
+        return cols_np, valids_np, mask_np, kinds, scales, dicts, P, N
 
     # ------------------------------------------------------------------
 
@@ -728,7 +767,7 @@ class TpuFinalStageExec(ExecutionPlan):
                 pay_plan.append((len(pays) - 1, ncnt_idx))
 
             perm = _lexsort([(~valid).to(torch.int32), pid] + keyops)
-            n_valid = int(valid.sum())
+            n_valid = _host_int(valid.sum())
             perm = perm[:n_valid]  # invalid rows sort last: drop them
             spid = pid[perm]
             skeys = [k[perm] for k in keyops]
@@ -742,7 +781,7 @@ class TpuFinalStageExec(ExecutionPlan):
                 boundary = torch.zeros((0,), dtype=torch.bool, device=dev)
             is_end = torch.ones_like(boundary)
             is_end[:-1] = boundary[1:]
-            n_seg = int(boundary.sum())
+            n_seg = _host_int(boundary.sum())
             if n_seg > C:
                 raise Unsupported(f"group capacity overflow ({n_seg} > {C})")
             starts = torch.nonzero(boundary).flatten()
@@ -855,7 +894,9 @@ class TpuFinalStageExec(ExecutionPlan):
         results = {p: [_empty_batch(schema)] for p in range(P_result)}
         if n_out == 0:
             return results
-        data = [o.cpu().numpy() for o in outs[:-2]]
+        from ballista_tpu_torch.ops.cuda.stage_compiler import _fetch
+
+        data = [_fetch(o) for o in outs[:-2]]
         out_meta = meta["out"]
         n_cols = len(out_meta)
         vals = data[:n_cols]

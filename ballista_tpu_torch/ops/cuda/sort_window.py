@@ -87,6 +87,7 @@ from ballista_tpu_torch.plan.physical import (
     _sort_table,
 )
 from ballista_tpu_torch.plan.schema import DFSchema
+from ballista_tpu_torch.utils.run_stats import RUN_STATS
 
 log = logging.getLogger(__name__)
 
@@ -124,8 +125,6 @@ def _count(key: str, delta: int = 1) -> int:
 def _publish_counters() -> None:
     """Mirror the cumulative counters into RUN_STATS (literal keys — the
     stats-sync pass matches emit sites by string constant)."""
-    from ballista_tpu_torch.ops.cuda.stage_compiler import RUN_STATS
-
     with _CTR_LOCK:
         snap = dict(_COUNTERS)
     RUN_STATS.set("sort_invocations", snap["sort_invocations"])
@@ -138,12 +137,16 @@ def _publish_counters() -> None:
 
 
 def _note_kernel_s(dt: float) -> None:
-    from ballista_tpu_torch.ops.cuda.stage_compiler import RUN_STATS
-
     with _CTR_LOCK:
         _KERNEL_S[0] += dt
         val = round(_KERNEL_S[0], 4)
     RUN_STATS.set("sort_kernel_s", val)
+
+
+def _fetch(t) -> np.ndarray:
+    """A device tensor on the host: one blocking fetch, one host sync."""
+    RUN_STATS.count_sync()
+    return t.cpu().numpy()
 
 
 def counters_snapshot() -> dict:
@@ -243,7 +246,6 @@ def _admit(est, config: BallistaConfig) -> None:
     """HBM admission for a sort/window stage: no splittable build side, so
     the ladder is run-whole vs CPU demotion, reason recorded."""
     from ballista_tpu_torch.ops.cuda import hbm
-    from ballista_tpu_torch.ops.cuda.stage_compiler import RUN_STATS
 
     budget = hbm.resolve_hbm_budget(config)
     plan = hbm.plan_stage(est, budget, grace_eligible=False, grace_fanout=2,
@@ -291,7 +293,7 @@ def _perm_full(key_ops: list, n: int, mode: str, up: _Uploads) -> np.ndarray:
             _, _, p = segmented_sort(a[perm][None, :], b[perm][None, :],
                                      pos[None, :])
             perm = perm[p[0].long()]
-        return perm.cpu().numpy()[:n]
+        return _fetch(perm)[:n]
     flat: list = []
     for nrank, lane in key_ops:
         if nrank is not None:
@@ -305,7 +307,7 @@ def _perm_full(key_ops: list, n: int, mode: str, up: _Uploads) -> np.ndarray:
     # both (the JAX package's lax.sort calls agree on it).
     from ballista_tpu_torch.ops.cuda.final_stage import _lexsort
 
-    return _lexsort(flat).cpu().numpy()
+    return _fetch(_lexsort(flat))
 
 
 def _perm_topk(key_ops: list, n: int, k: int, up: _Uploads) -> np.ndarray:
@@ -321,7 +323,7 @@ def _perm_topk(key_ops: list, n: int, k: int, up: _Uploads) -> np.ndarray:
     up.bytes += L * 4
     kk = min(int(k), n)
     _, _, sp = topk_select(a[None, :], b[None, :], pos[None, :], kk)
-    return sp[0].cpu().numpy()[:kk]
+    return _fetch(sp[0])[:kk]
 
 
 def _pad_i64(a: np.ndarray, L: int) -> np.ndarray:
@@ -402,7 +404,6 @@ def _device_sort(tbl: pa.Table, df_schema: DFSchema, keys: list,
     """The ordered (and cut) table; appends (mode, reason, rows) of the
     cost model's decision to `decisions`."""
     from ballista_tpu_torch.ops.cuda import fusion
-    from ballista_tpu_torch.ops.cuda.stage_compiler import RUN_STATS
 
     n = tbl.num_rows
     if n == 0:
@@ -524,7 +525,6 @@ def _device_frame(batch: pa.RecordBatch, w: WindowFunction, schema: DFSchema,
     peers) so peer semantics cannot drift. Returns (_Frame, decision)."""
     from ballista_tpu_torch.ops.cpu.window import _Frame, _changes, _first_only
     from ballista_tpu_torch.ops.cuda import fusion
-    from ballista_tpu_torch.ops.cuda.stage_compiler import RUN_STATS
 
     n = batch.num_rows
     part_arrays = [evaluate_to_array(bind_expr(e, schema), batch)
@@ -578,11 +578,11 @@ def _seg_scan(vals: np.ndarray, boundary: np.ndarray, func: str, mode: str,
         f = np.ones(L, dtype=bool)  # padding lanes self-reset
         f[:n] = boundary
         out = segmented_scan(up.put(v)[None, :], up.put(f)[None, :], func)
-        return out[0].cpu().numpy()[:n]
+        return _fetch(out[0])[:n]
     from ballista_tpu_torch.ops.cuda.final_stage import _segscan
 
     out = _segscan(up.put(vals), up.put(boundary), func)
-    return out.cpu().numpy()
+    return _fetch(out)
 
 
 def _device_compute_one(batch: pa.RecordBatch, w: WindowFunction,
@@ -708,8 +708,6 @@ def _device_windows(batch: pa.RecordBatch, window_exprs: list,
             decisions.append((dec.mode, dec.reason, n))
         fr, dec = frames[key]
         out.append(_device_compute_one(batch, w, schema, fr, dec.mode, up))
-    from ballista_tpu_torch.ops.cuda.stage_compiler import RUN_STATS
-
     RUN_STATS.set("device_bytes", up.bytes)
     _count("window_invocations")
     return out

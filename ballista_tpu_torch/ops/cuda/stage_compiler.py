@@ -130,6 +130,8 @@ from ballista_tpu_torch.plan.physical import (
 )
 from ballista_tpu_torch.plan.schema import DFSchema
 from ballista_tpu_torch.utils.lru import LruDict
+# the one RUN_STATS, torch-free so the client can open statements on it
+from ballista_tpu_torch.utils.run_stats import RUN_STATS, RunStats  # noqa: F401
 
 log = logging.getLogger(__name__)
 
@@ -181,101 +183,6 @@ class _KeyedFills:
 
 
 _CACHE_FILLS = _KeyedFills()
-
-
-class RunStats:
-    """Per-stage-run diagnostics.
-
-    Every stage dispatch opens a `run(tag)` scope that collects into a
-    private per-run dict and publishes atomically on exit: `snapshot()`
-    is a consistent most-recent-run-wins view, and `stages()` keeps the
-    last few per-stage records.
-
-    Keys the port fills: fill_s (whole device fill), encode_s (host encode
-    wall), upload_s (host→card copies), device_bytes, build_s (join build
-    sides: host collect + encode + upload, or the build-cache hits; under
-    ballista.tpu.compile.overlap the builds' wall from the first submit to
-    the last result, beside the fill), exec_s
-    (dispatch + fetch + decode), build_modes (direct | sorted per join
-    build), fused_kernel_s (device seconds of the
-    stage pass), span_s (staged mode: predicate / project / aggregate
-    seconds), fusion_mode (fused_xla | fused_pallas | staged — the mode
-    that actually ran), fusion_reason (the cost model's stated rationale),
-    fused_spans (operator spans run in the stage pass), hbm_budget_bytes,
-    hbm_plan (run_whole | spill_colds | grace_split | cpu_demote),
-    hbm_plan_reason, grace_splits (sub-buckets run), and the spill pool's
-    cumulative hbm_spill_bytes, hbm_spill_events, hbm_reupload_events with
-    hbm_oom_retries (the out-of-memory retries so far); the sorted
-    aggregation adds sort_s (device seconds of its sort), live_rows (rows
-    sorted), n_seg (groups) and seg_capacity (C). Warm-daemon routing
-    (ops/cuda/daemon_route.py): daemon_mode ("attached" when the stage ran
-    in the device daemon, "in_process" when the session opted in but it
-    ran here) and daemon_mode_reason; daemon_attached, daemon_sessions,
-    daemon_queue_depth and the daemon's init phase seconds
-    (init_platform_probe_s, init_cuda_devices_s, init_first_launch_s);
-    daemon_failover / daemon_failover_reason for a crash recovered by a
-    respawn or a quarantined stage, and the process-lifetime counters
-    daemon_restarts, daemon_crashes_detected, watchdog_kills and
-    poisoned_stages."""
-
-    _MAX_STAGES = 32
-
-    def __init__(self):
-        import collections
-
-        self._lock = threading.Lock()
-        self._merged: dict = {}
-        self._stages: "collections.OrderedDict[str, dict]" = collections.OrderedDict()
-        self._tls = threading.local()
-
-    @contextlib.contextmanager
-    def run(self, tag: str):
-        rec: dict = {}
-        prev = getattr(self._tls, "rec", None)
-        self._tls.rec = rec
-        try:
-            yield rec
-        finally:
-            self._tls.rec = prev
-            self._publish(tag, rec)
-
-    def _publish(self, tag: str, rec: dict) -> None:
-        if not rec:
-            return
-        with self._lock:
-            self._merged.update(rec)
-            self._stages.pop(tag, None)
-            self._stages[tag] = dict(rec)
-            while len(self._stages) > self._MAX_STAGES:
-                self._stages.popitem(last=False)
-
-    def set(self, key: str, value, rec: dict | None = None) -> None:
-        """Record one stat. With `rec` (a run's private dict, threadable to
-        helper threads) the write lands in that run; otherwise in the
-        calling thread's open run scope, else directly in the merged view."""
-        if rec is None:
-            rec = getattr(self._tls, "rec", None)
-        if rec is not None:
-            rec[key] = value
-        else:
-            with self._lock:
-                self._merged[key] = value
-
-    def snapshot(self) -> dict:
-        with self._lock:
-            return dict(self._merged)
-
-    def stages(self) -> dict:
-        with self._lock:
-            return {t: dict(r) for t, r in self._stages.items()}
-
-    def clear(self) -> None:
-        with self._lock:
-            self._merged.clear()
-            self._stages.clear()
-
-
-RUN_STATS = RunStats()
 
 DIRECT_TABLE_MAX = 1 << 27  # 128M entries × int32 = 512 MB ceiling
 
@@ -743,8 +650,8 @@ def _spill_device_table(pool, key: tuple, dt: DeviceTable) -> None:
     plane back to numpy and hand the flat list (cols, mask, valids, None
     slots kept) with the encode metadata to the pool, which owns the
     tiering (host buffers or tmp+rename disk files)."""
-    flat = ([c.cpu().numpy() for c in dt.cols] + [dt.mask.cpu().numpy()]
-            + [None if v is None else v.cpu().numpy() for v in dt.valids])
+    flat = ([_fetch(c) for c in dt.cols] + [_fetch(dt.mask)]
+            + [None if v is None else _fetch(v) for v in dt.valids])
     meta = (list(dt.kinds), list(dt.scales), list(dt.dicts),
             list(dt.part_rows), int(dt.nbytes))
     pool.put(key, meta, flat, int(dt.nbytes))
@@ -806,8 +713,10 @@ def _fill_beside_builds(fill, prepare, join_ops: list, card):
     stage, and the out-of-memory rung clears the caches after the last
     build has filled them."""
 
+    scope = RUN_STATS.scope()
+
     def run(jidx: int, op):
-        with _on_card(card):
+        with _on_card(card), RUN_STATS.within(scope):
             return prepare(jidx, op)
 
     pool = _fut.ThreadPoolExecutor(max_workers=len(join_ops), thread_name_prefix="cuda-build")
@@ -930,7 +839,8 @@ class TpuStageExec(ExecutionPlan):
                 out = self._results.pop(partition)
                 self._note_served_locked(partition)
                 return out
-        return self._fallback(partition, ctx)
+        with RUN_STATS.span("stage.cpu"):
+            return self._fallback(partition, ctx)
 
     def _note_served_locked(self, partition: int) -> None:
         """Bound re-run retention (call under _results_lock): when every
@@ -954,6 +864,10 @@ class TpuStageExec(ExecutionPlan):
         caches, hint the planner to pre-plan grace for this stage, and retry
         ONCE; a second out-of-memory error demotes the stage to the CPU
         engine. Any other error propagates."""
+        with RUN_STATS.span("stage"):
+            return self._dispatch_here(ctx)
+
+    def _dispatch_here(self, ctx: TaskContext) -> dict[int, list[pa.RecordBatch]]:
         out = self._daemon_run_all(ctx)
         if out is not None:
             return out
@@ -1239,7 +1153,8 @@ class TpuStageExec(ExecutionPlan):
         (`cache_luts` False): a sub-build's dictionaries depend on its
         bucket, which the LUT key does not hold. Returns (meta, device
         outputs)."""
-        fn, lowering, meta = self._compile(dt, builds, mode_req)
+        with RUN_STATS.span("stage.lower"):
+            fn, lowering, meta = self._compile(dt, builds, mode_req)
         emit_key = (tuple(self.emit_pid[0]), self.emit_pid[1]) if self.emit_pid else None
         lut_key = (table_key, self.fingerprint, emit_key, str(dt.where))
 
@@ -1248,11 +1163,14 @@ class TpuStageExec(ExecutionPlan):
             return [_put(l, dt.where)
                     for l in lowering.build_luts(dt.dicts, [b.dicts for b in builds])]
 
-        luts = (_CACHE_FILLS.get(_LUT_CACHE, lut_key, upload_luts) if cache_luts
-                else upload_luts())
+        with RUN_STATS.span("stage.luts"):
+            luts = (_CACHE_FILLS.get(_LUT_CACHE, lut_key, upload_luts) if cache_luts
+                    else upload_luts())
         t0 = time.time()
-        outs, run_meta = _run_pass(fn, meta["mode"], dt, luts, builds)
-        _synchronize(dt.where)
+        with RUN_STATS.span("stage.pass"):
+            outs, run_meta = _run_pass(fn, meta["mode"], dt, luts, builds)
+        with RUN_STATS.span("stage.wait"):
+            _synchronize(dt.where)
         span_s = run_meta.get("span_s")
         # device seconds of the stage pass: the synchronized dispatch, or
         # the staged spans' sum
@@ -1312,22 +1230,25 @@ class TpuStageExec(ExecutionPlan):
                                                        sdir or tempfile.gettempdir()))
         join_ops = [o for o in self.ops if isinstance(o, HashJoinExec)]
         # the build and LUT caches' key: the probe table and the tables
-        # under each build side
-        scan_key = DEVICE_CACHE.key_of(self.scan)
-        table_key = (scan_key, _build_leaf_keys(join_ops))
+        # under each build side (the files' stamps)
+        with RUN_STATS.span("stage.table"):
+            scan_key = DEVICE_CACHE.key_of(self.scan)
+            table_key = (scan_key, _build_leaf_keys(join_ops))
 
         def fill() -> DeviceTable:
-            dt = DEVICE_CACHE.get(
-                self.scan, self.buckets, ctx, max_bytes, device,
-                fill_threads=int(self.config.get(TPU_FILL_THREADS)),
-                chunk_rows=int(self.config.get(TPU_FILL_CHUNK_ROWS)),
-                stats=rec, spill_pool=spill_pool, scan_key=scan_key)
+            with RUN_STATS.span("stage.table"):
+                dt = DEVICE_CACHE.get(
+                    self.scan, self.buckets, ctx, max_bytes, device,
+                    fill_threads=int(self.config.get(TPU_FILL_THREADS)),
+                    chunk_rows=int(self.config.get(TPU_FILL_CHUNK_ROWS)),
+                    stats=rec, spill_pool=spill_pool, scan_key=scan_key)
             if sum(dt.part_rows) < self.min_rows:
                 raise Unsupported(f"only {sum(dt.part_rows)} rows (< tpu min)")
             return dt
 
         def prepare(jidx: int, op) -> BuildTable:
-            return self._prepare_build(op, jidx, ctx, table_key, device)
+            with RUN_STATS.span("stage.build"):
+                return self._prepare_build(op, jidx, ctx, table_key, device)
 
         if join_ops and bool(self.config.get(TPU_COMPILE_OVERLAP)):
             dt, builds, build_s = _fill_beside_builds(fill, prepare, join_ops, card)
@@ -1339,7 +1260,8 @@ class TpuStageExec(ExecutionPlan):
         rec["build_s"] = round(build_s, 6)
         rec["build_modes"] = [b.mode for b in builds]
 
-        dec, est = self._fusion_decision(dt, builds)
+        with RUN_STATS.span("stage.plan"):
+            dec, est = self._fusion_decision(dt, builds)
         rec["fusion_reason"] = dec.reason
 
         # admission: every stage states its memory plan before the pass.
@@ -1350,16 +1272,17 @@ class TpuStageExec(ExecutionPlan):
         grace_fanout = int(self.config.get(TPU_HBM_GRACE_BUCKETS))
         grace_depth_cap = int(self.config.get(TPU_HBM_GRACE_DEPTH))
         my_key = scan_key + (str(device),)
-        plan = hbm.plan_stage(
-            est, budget,
-            grace_eligible=(not est.has_mult and 0 <= est.max_build_jidx < len(join_ops)
-                            and join_ops[est.max_build_jidx].join_type == "inner"),
-            grace_fanout=grace_fanout,
-            grace_max_depth=grace_depth_cap,
-            resident_other=DEVICE_CACHE.resident_bytes(exclude_key=my_key),
-            observed_bytes=int(getattr(self, "hbm_observed_input_bytes", 0) or 0),
-            force_grace=hbm.consume_oom_hint(self.fingerprint),
-        )
+        with RUN_STATS.span("stage.plan"):
+            plan = hbm.plan_stage(
+                est, budget,
+                grace_eligible=(not est.has_mult and 0 <= est.max_build_jidx < len(join_ops)
+                                and join_ops[est.max_build_jidx].join_type == "inner"),
+                grace_fanout=grace_fanout,
+                grace_max_depth=grace_depth_cap,
+                resident_other=DEVICE_CACHE.resident_bytes(exclude_key=my_key),
+                observed_bytes=int(getattr(self, "hbm_observed_input_bytes", 0) or 0),
+                force_grace=hbm.consume_oom_hint(self.fingerprint),
+            )
         rec["hbm_budget_bytes"] = budget
         rec["hbm_plan"] = plan.decision
         rec["hbm_plan_reason"] = plan.reason
@@ -1390,9 +1313,11 @@ class TpuStageExec(ExecutionPlan):
                       builds: list[BuildTable]) -> dict[int, list[pa.RecordBatch]]:
         """One fetch per device output, then the decode of the stage's
         mode into per-partition batches."""
-        outs = [o.cpu().numpy() for o in outs]
+        with RUN_STATS.span("stage.fetch"):
+            outs = [_fetch(o) for o in outs]
         decode = self._decode_sorted if meta["mode"] == "sorted" else self._decode_all
-        return decode(outs, meta, dt.shape[0], dt.dicts, [b.dicts for b in builds])
+        with RUN_STATS.span("stage.decode"):
+            return decode(outs, meta, dt.shape[0], dt.dicts, [b.dicts for b in builds])
 
     def _grace_run(self, ctx: TaskContext, rec: dict, dt: DeviceTable,
                    join_ops: list, builds: list[BuildTable], plan,
@@ -1966,8 +1891,7 @@ class TpuStageExec(ExecutionPlan):
                 memo.clear()  # no span reuses another's lookups
                 t0 = time.time()
                 out = fn()
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
+                _synchronize(dev)
                 return out, time.time() - t0
 
             try:
@@ -2431,6 +2355,7 @@ class _Staging:
         i = self._next
         self._next ^= 1
         if self._events[i] is not None:
+            RUN_STATS.count_sync()
             self._events[i].synchronize()
             self._events[i] = None
         buf = self._bufs[i]
@@ -2481,11 +2406,19 @@ def _by_partition(device):
 
 
 def _synchronize(device) -> None:
-    """Wait for the card(s) `device` (a torch device or a Mesh) names."""
+    """Wait for the card(s) `device` (a torch device or a Mesh) names: one
+    host sync."""
+    RUN_STATS.count_sync()
     devs = device.devices if isinstance(device, Mesh) else (device,)
     for d in dict.fromkeys(devs):
         if d.type == "cuda":
             torch.cuda.synchronize(d)
+
+
+def _fetch(t) -> np.ndarray:
+    """A device tensor on the host: one blocking fetch, one host sync."""
+    RUN_STATS.count_sync()
+    return t.cpu().numpy()
 
 
 def _stage_mesh(config: BallistaConfig) -> Mesh | None:

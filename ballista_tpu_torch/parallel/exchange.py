@@ -171,8 +171,12 @@ class MeshTensor:
         return torch.cat([s.to(device) for s in self.shards])
 
     def cpu(self):
+        """Every shard on the host: one blocking fetch."""
         import torch
 
+        from ballista_tpu_torch.utils.run_stats import RUN_STATS
+
+        RUN_STATS.count_sync()
         return self.gather(torch.device("cpu"))
 
     def __array__(self, dtype=None, copy=None):

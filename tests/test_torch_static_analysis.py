@@ -29,11 +29,8 @@ from ballista_tpu_torch.analysis.passes.torch_guard import ENTRY_POINTS, TorchGu
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# the grandfathered findings: XLA compile timers and XLA cache knobs the
-# port has no counterpart of
+# the grandfathered findings: XLA cache knobs the port has no counterpart of
 BASELINE_KEYS = {
-    "stats-sync:ballista_tpu_torch/executor/executor_process.py:consumed:compile_s",
-    "stats-sync:ballista_tpu_torch/executor/executor_process.py:consumed:compile_overlap_s",
     "knob-sync:ballista_tpu_torch/config.py:unused:BALLISTA_TPU_COMPILE_CACHE_ENTRIES",
     "knob-sync:ballista_tpu_torch/config.py:unused:BALLISTA_TPU_FINAL_CACHE_ENTRIES",
 }
@@ -83,7 +80,7 @@ def test_cli_as_a_module():
     out = subprocess.run([sys.executable, "-m", "ballista_tpu_torch.analysis"],
                          capture_output=True, text=True, timeout=120, env=env, cwd=ROOT)
     assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
-    assert out.stdout.strip().splitlines()[-1].startswith("0 finding(s), 4 baselined")
+    assert out.stdout.strip().splitlines()[-1].startswith("0 finding(s), 2 baselined")
 
 
 def test_config_docs_are_generated():
