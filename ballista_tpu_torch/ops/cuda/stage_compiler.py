@@ -116,6 +116,7 @@ from ballista_tpu_torch.ops.cuda.kernels import (
 )
 from ballista_tpu_torch.parallel.exchange import ByPartition, Mesh, MeshTensor
 from ballista_tpu_torch.plan.expressions import Alias, Column, Expr
+from ballista_tpu_torch.plan.object_store import file_stamp as _file_stamp
 from ballista_tpu_torch.plan.physical import (
     CoalesceBatchesExec,
     CoalescePartitionsExec,
@@ -322,24 +323,6 @@ def _no_code_extreme(fn, func: str):
         return v
 
     return run
-
-
-def _file_stamp(path: str) -> tuple:
-    """What names a file's contents beside its path: a local file's size,
-    mtime and inode; an object's size and mtime, read with one HEAD
-    request, so an object rewritten under the same key is another table
-    (ROADMAP C26). Never cached: a cached stamp would hide the rewrite."""
-    if path.startswith("s3://"):
-        from ballista_tpu_torch.plan.object_store import resolve_filesystem
-
-        fs, inner = resolve_filesystem(path)
-        info = fs.get_file_info(inner)
-        return (info.size, info.mtime_ns)
-    try:
-        st = os.stat(path)
-    except (OSError, ValueError):
-        return ()
-    return (st.st_size, st.st_mtime_ns, st.st_ino)
 
 
 def _build_leaf_keys(join_ops) -> tuple:

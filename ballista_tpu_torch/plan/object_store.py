@@ -39,3 +39,21 @@ def resolve_filesystem(path: str):
     if path.startswith("file://"):
         return pafs.LocalFileSystem(), path[len("file://"):]
     return pafs.LocalFileSystem(), path
+
+
+def file_stamp(path: str) -> tuple:
+    """What names a file's contents beside its path: a local file's size,
+    mtime and inode; an object's size and mtime, read with one HEAD
+    request, so an object rewritten under the same key is another table
+    (ROADMAP C26). Never cached: a cached stamp would hide the rewrite.
+    The device table cache keys on it, and the planner keeps each file's
+    row-group sizes by it (plan/provider.py)."""
+    if path.startswith("s3://"):
+        fs, inner = resolve_filesystem(path)
+        info = fs.get_file_info(inner)
+        return (info.size, info.mtime_ns)
+    try:
+        st = os.stat(path)
+    except (OSError, ValueError):
+        return ()
+    return (st.st_size, st.st_mtime_ns, st.st_ino)

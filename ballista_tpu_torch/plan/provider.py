@@ -23,7 +23,9 @@ from typing import Any, Optional
 import pyarrow as pa
 import pyarrow.parquet as pq
 
+from ballista_tpu_torch.plan.object_store import file_stamp
 from ballista_tpu_torch.plan.schema import DFSchema
+from ballista_tpu_torch.utils.run_stats import RUN_STATS
 
 
 @dataclass
@@ -84,6 +86,9 @@ class ParquetTable(TableProvider):
             self.files = [path]
         if not self.files:
             raise FileNotFoundError(f"no parquet files under {path}")
+        # each file's (stamp taken before its footer was read, row-group byte
+        # sizes, rows): a footer is read again only when its file changes
+        self._digests: dict[str, tuple[tuple, tuple[int, ...], int]] = {}
         self._schema = _normalize_schema(_read_schema(self.files[0]))
         self._stats: TableStats | None = None
         if collect_statistics:
@@ -96,24 +101,40 @@ class ParquetTable(TableProvider):
         rows = 0
         tbytes = 0
         for f in self.files:
-            md = _read_metadata(f)
-            rows += md.num_rows
-            tbytes += sum(
-                md.row_group(i).total_byte_size for i in range(md.num_row_groups)
-            )
+            _, sizes, n = self._read_footer(f, file_stamp(f))
+            rows += n
+            tbytes += sum(sizes)
         self._stats = TableStats(num_rows=rows, total_bytes=tbytes)
 
     def statistics(self) -> TableStats:
         return self._stats or TableStats()
 
+    def _read_footer(self, f: str, stamp: tuple) -> tuple:
+        """Parse `f`'s footer and keep its digest under `stamp`, taken
+        before the read: a file rewritten meanwhile leaves a stamp that no
+        later call matches."""
+        md = _read_metadata(f)
+        RUN_STATS.count("footer_reads")
+        digest = (stamp, tuple(md.row_group(i).total_byte_size
+                               for i in range(md.num_row_groups)), md.num_rows)
+        self._digests[f] = digest
+        return digest
+
     def scan_partitions(self, target_partitions: int) -> list[dict]:
         """One partition per (file, row-group range), rebalanced to roughly
-        `target_partitions` groups by byte size."""
+        `target_partitions` groups by byte size.
+
+        Each file is stamped on every call (`file_stamp`: one `stat` or
+        HEAD); its footer is parsed again only when the stamp differs from
+        the one its row-group sizes were kept under. A file that cannot be
+        stamped is read every call."""
         units: list[tuple[str, int, int]] = []  # (file, rg_index, bytes)
         for f in self.files:
-            md = _read_metadata(f)
-            for rg in range(md.num_row_groups):
-                units.append((f, rg, md.row_group(rg).total_byte_size))
+            stamp = file_stamp(f)
+            digest = self._digests.get(f)
+            if not stamp or digest is None or digest[0] != stamp:
+                digest = self._read_footer(f, stamp)
+            units.extend((f, rg, sz) for rg, sz in enumerate(digest[1]))
         if not units:
             return [{"file": f, "row_groups": None} for f in self.files]
         target = max(1, min(target_partitions, len(units)))

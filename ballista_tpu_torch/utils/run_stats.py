@@ -20,9 +20,11 @@ process (checked as each statement opens), so a profiled window carries
 the spans that explain it. Off, `span()` costs one flag check and returns
 a shared no-op context.
 
-`host_syncs` counts, always, every point where a port thread blocks on the
-card: a synchronize, an event wait, a blocking fetch (`.cpu()`, `int()` of
-a device scalar). It is counted at the site, on the CPU forms too.
+Counters, always counted, at the site, on the CPU forms too:
+`host_syncs`, every point where a port thread blocks on the card (a
+synchronize, an event wait, a blocking fetch: `.cpu()`, `int()` of a
+device scalar); `footer_reads`, every parquet footer the planner parses
+(`ParquetTable`, plan/provider.py).
 """
 
 from __future__ import annotations
@@ -147,12 +149,14 @@ class RunStats:
     poisoned_stages.
 
     Spans and counters (the module docstring): `statement`, `span`,
-    `scope` / `within`, `trace`, `spans()`, `counters()`, `count_sync`."""
+    `scope` / `within`, `trace`, `spans()`, `counters()`, `count`,
+    `count_sync`."""
 
     _MAX_STAGES = 32
     # a 51 s window of 3 streams at ~15 statements/s and ~25 spans each is
     # ~19k spans: room for four such windows
     SPAN_RING = 1 << 17
+    COUNTERS = ("host_syncs", "footer_reads")
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -170,8 +174,8 @@ class RunStats:
         self._explicit = False    # trace(True) asked for them
         self._open = 0            # statement scopes open now, any thread
         self._gc_t0 = 0
-        self._syncs_at_on = 0     # host_syncs when spans were turned on
-        self.host_syncs = 0
+        self._counts = dict.fromkeys(self.COUNTERS, 0)
+        self._counts_at_on = dict(self._counts)  # when spans were turned on
 
     @contextlib.contextmanager
     def run(self, tag: str):
@@ -276,7 +280,7 @@ class RunStats:
                 with self._ring_lock:
                     self._ring.clear()
                     self._recorded = 0
-                self._syncs_at_on = self.host_syncs
+                self._counts_at_on = dict(self._counts)
                 gc.callbacks.append(self._on_gc)
             else:
                 with contextlib.suppress(ValueError):
@@ -312,16 +316,23 @@ class RunStats:
 
     # -- counters ---------------------------------------------------------
 
+    def count(self, name: str, n: int = 1) -> None:
+        """Add `n` to the counter `name` (one of `COUNTERS`)."""
+        with self._lock:
+            self._counts[name] += n
+
     def count_sync(self, n: int = 1) -> None:
         """`n` points where this thread blocks on the card."""
-        with self._lock:
-            self.host_syncs += n
+        self.count("host_syncs", n)
 
     def counters(self, since_trace: bool = False) -> dict:
-        """host_syncs and spans_dropped; with `since_trace`, host_syncs
-        counted since spans were last turned on."""
-        syncs = self.host_syncs - (self._syncs_at_on if since_trace else 0)
-        return {"host_syncs": syncs, "spans_dropped": self.spans_dropped}
+        """The `COUNTERS` and spans_dropped; with `since_trace`, each
+        counter counted since spans were last turned on."""
+        with self._lock:
+            out = {k: v - (self._counts_at_on[k] if since_trace else 0)
+                   for k, v in self._counts.items()}
+        out["spans_dropped"] = self.spans_dropped
+        return out
 
 
 RUN_STATS = RunStats()

@@ -224,7 +224,8 @@ def test_reference_still_serves_the_stale_table(rewritable):
 def test_stamp_is_one_head_request_a_file_per_stage_run(rewritable, monkeypatch):
     """A warm run over the object re-reads its size and mtime (never a
     cached stamp) with one HEAD request a file per device stage run. (The
-    planner reads each file's footer as well, before the stage runs.)"""
+    planner stamps each file as well, before the stage runs, and reads its
+    footer again only when the stamp moves.)"""
     from ballista_tpu_torch.testing import mini_s3
 
     uri, _ = rewritable

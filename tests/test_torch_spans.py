@@ -97,7 +97,9 @@ def _check_tree(recs) -> dict:
         top = r
         while top[2]:
             top = by_id[top[2]]
-        assert top[3] == "collect", r
+        # `plan.sql` has no child spans; a collection that starts while it
+        # is open is recorded under it (test_collection_in_sql_planning_...)
+        assert top[3] == "collect" or (r[3] == "gc" and parent[3] == "plan.sql"), r
     return by_id
 
 
@@ -314,6 +316,25 @@ def test_collections_are_gc_spans_inside_the_innermost_span():
     gcs = [r for r in recs if r[3] == "gc"]
     assert gcs and all(r[0] == sid and by_id[r[2]][3] == "stage.decode" for r in gcs)
     assert gc.callbacks.count(rs._on_gc) == 0
+
+
+def test_collection_in_sql_planning_is_a_gc_span_under_plan_sql(ctx, monkeypatch):
+    # a collection can start while `ctx.sql()` parses and plans: it is filed
+    # under `plan.sql`, the innermost span open, inside its interval
+    from ballista_tpu_torch.client import context
+
+    parse = context.parse_sql
+
+    def parse_and_collect(text):
+        gc.collect()
+        return parse(text)
+
+    monkeypatch.setattr(context, "parse_sql", parse_and_collect)
+    (recs,) = _by_statement(_traced(ctx, [6])).values()
+    by_id = _check_tree(recs)
+    (plan_sql,) = [r for r in recs if r[3] == "plan.sql"]
+    gcs = [r for r in recs if r[3] == "gc" and by_id[r[2]] is plan_sql]
+    assert gcs and all(plan_sql[5] <= r[5] <= r[6] <= plan_sql[6] for r in gcs)
 
 
 def test_run_stats_and_the_client_leave_torch_unloaded():
